@@ -1,0 +1,302 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
+time the row-gather kernel, then drive the RoarGraph build-then-search path
+once at full width.
+
+    python3 chip_smoke.py     # 1M x 128 base, 200k train queries, one card
+
+Phases, one line each before the last:
+  1. device: the card's name and power limit (there is no CPU fallback);
+  2. build: nvcc compiles the gather kernel into mysteryann_tpu_torch/build/;
+  3. kernel: the gather kernel against torch.index_select on the card, bit
+     for bit, at the path's shapes and a few odd ones; the out-of-range flag;
+     median times of both;
+  4. main path on the bench's synthetic T2I world: exact kNN (train kNN and
+     ground truth), build_roargraph (classic engine), save/load,
+     Searcher.search at L = 64, 100, 200; checks on the graph, on recall and
+     that the path went through the kernel.
+Then a JSON line with the kernel's record, and last a JSON line with the
+device. Any failed check exits non-zero before the last line is printed.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# the bench's T2I world (bench.py: WORLD, N_BASE, N_TRAIN, DIM, METRIC, K,
+# M_SQ / M_PJBP / L_PJPQ) with the reference's single phase-D pass on the
+# classic engine
+WORLD = dict(n_concepts=20_000, intrinsic_dim=48, noise=0.85)
+DIM, METRIC, K = 128, "ip", 10
+SEARCH_LS = (64, 100, 200)
+RECALL_FLOOR = 0.90     # recall@10 at L_pq=200
+KERNEL_SOURCE = "mysteryann_tpu_torch/csrc/gather.cu"
+KERNEL_REPLACES = "mysteryann_tpu/ops/gather.py:52"
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def phase(tag: str, **fields) -> None:
+    print(f"[{tag}] " + json.dumps(fields), flush=True)
+
+
+def import_port():
+    """The port from this checkout (never an installed copy)."""
+    sys.path.insert(0, HERE)
+    try:
+        import mysteryann_tpu_torch as port
+    except ModuleNotFoundError as e:
+        fail(f"the port package is not beside this script: {e}")
+    pkg_dir = os.path.dirname(os.path.abspath(port.__file__))
+    check(pkg_dir == os.path.join(HERE, "mysteryann_tpu_torch"),
+          f"imported the port from {pkg_dir}, not from this checkout")
+    check("jax" not in sys.modules, "the port imported jax")
+    return port
+
+
+def time_ms(fn, reps: int = 20, trials: int = 7) -> float:
+    """Median over `trials` of the mean time of `reps` back-to-back calls,
+    by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return float(np.median(out))
+
+
+def kernel_checks(gather, dev) -> dict:
+    """Phase 3: the kernel against index_select at the listed shapes."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    cases = [
+        ("f32", (1_000_000, 128), torch.float32, 65536),
+        ("i32", (1_000_000, 64), torch.int32, 65536),
+        ("i8_odd_width", (4096, 48), torch.int8, 65536),
+        ("bf16", (10_000, 96), torch.bfloat16, 65536),
+        ("empty", (1000, 128), torch.float32, 0),
+    ]
+    max_err = 0.0
+    timings = {}
+    for name, shape, dt, n_idx in cases:
+        if dt.is_floating_point:
+            table = torch.randn(shape, generator=g, device=dev).to(dt)
+        else:
+            table = torch.randint(-100, 100, shape, generator=g, device=dev,
+                                  dtype=torch.int32).to(dt)
+        idx = torch.randint(0, shape[0], (n_idx,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if n_idx:
+            idx[0], idx[-1] = 0, shape[0] - 1
+        for ix in (idx, idx.long()):
+            got = gather.gather_rows(table, ix)
+            want = gather.gather_rows_ref(table, ix)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"kernel {name}: shape/dtype {got.shape} {got.dtype}")
+            equal = torch.equal(got, want)
+            err = (float((got.float() - want.float()).abs().max())
+                   if got.numel() else 0.0)
+            max_err = max(max_err, err)
+            check(equal, f"kernel {name} ({ix.dtype}): differs from "
+                         f"index_select, max abs err {err}")
+        if name in ("f32", "i32"):
+            timings[name] = {
+                "kernel_ms": time_ms(lambda: gather.gather_rows(table, idx)),
+                "index_select_ms": time_ms(
+                    lambda: gather.gather_rows_ref(table, idx)),
+                "rows": n_idx, "row_bytes": shape[1] * table.element_size()}
+    phase("kernel", bit_identical=True, cases=[c[0] for c in cases],
+          timings=timings)
+
+    # an index of N must not be read: its row comes back zero and the
+    # device flag is set; then the flag is cleared for the main path
+    table = torch.ones((1000, 128), device=dev)
+    out = gather.gather_rows(table, torch.tensor([5, 1000], device=dev,
+                                                 dtype=torch.int32))
+    torch.cuda.synchronize()
+    check(gather.error_flag_value() == 1, "out-of-range index set no flag")
+    check(bool((out[1] == 0).all()) and bool((out[0] == 1).all()),
+          "out-of-range row not zeroed")
+    gather.reset_error_flag()
+    check(gather.error_flag_value() == 0, "error flag did not reset")
+    phase("kernel_flag", out_of_range_flagged=True, reset=True)
+    return {"max_abs_err": max_err, "ms": timings["f32"]["kernel_ms"],
+            "plain_ms": timings["f32"]["index_select_ms"]}
+
+
+def reachable_all(neighbors: np.ndarray, ep: int) -> bool:
+    n = neighbors.shape[0]
+    seen = np.zeros(n, bool)
+    seen[ep] = True
+    frontier = np.array([ep])
+    while frontier.size:
+        nxt = neighbors[frontier]
+        nxt = np.unique(nxt[nxt < n])
+        nxt = nxt[~seen[nxt]]
+        seen[nxt] = True
+        frontier = nxt
+    return bool(seen.all())
+
+
+def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
+              query_batch: int = 8192) -> dict:
+    """Phase 4: data → exact kNN → build → save/load → search → recall."""
+    from mysteryann_tpu_torch.utils.trace import tracer
+
+    t0 = time.perf_counter()
+    base, train_q = port.make_cross_modal(n_base, n_train, DIM,
+                                          metric=METRIC, seed=7, **WORLD)
+    _, eval_q = port.make_cross_modal(1, n_eval, DIM, metric=METRIC, seed=7,
+                                      query_seed=8, **WORLD)
+    phase("data", n_base=n_base, n_train=n_train, n_eval=n_eval, dim=DIM,
+          seconds=time.perf_counter() - t0)
+
+    gather.reset_launches()
+    base_dev = port.prepare_vectors(base, METRIC, dev)
+    t0 = time.perf_counter()
+    _, knn = port.exact_knn(train_q, base_dev, k=64, metric=METRIC,
+                            query_batch=query_batch)
+    t_knn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gt_d, gt_i = port.exact_knn(eval_q, base_dev, k=K, metric=METRIC,
+                                query_batch=query_batch, precision="highest")
+    t_gt = time.perf_counter() - t0
+    # the ground truth against a float64 numpy scan on a few queries
+    probe = eval_q[:64].astype(np.float64)
+    ref = np.argpartition(-(probe @ base.T.astype(np.float64)), K,
+                          axis=1)[:, :K]
+    gt_agree = port.compute_recall(gt_i[:64], ref, K)
+    check(gt_agree >= 0.99, f"ground truth disagrees with float64: "
+                            f"{gt_agree}")
+    check(np.isfinite(gt_d).all() and gt_i.shape == (n_eval, K),
+          "ground truth not finite / wrong shape")
+    phase("knn", train_knn_s=t_knn, gt_s=t_gt, gt_vs_float64=gt_agree)
+
+    cfg = port.BuildConfig(M_sq=64, M_pjbp=32, L_pjpq=128, metric=METRIC,
+                           query_batch=8192, search_batch=8192,
+                           connectivity_passes=1,
+                           connectivity_engine="classic",
+                           connectivity_expand=4)
+    tr = tracer()
+    tr.reset()
+    before = gather.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = port.build_roargraph(base_dev, train_q, knn, cfg, verbose=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = gather.launches - before
+    spans = tr.summary()["spans"]
+    st = index.graph.degree_stats()
+    reach = reachable_all(index.graph.neighbors, index.graph.ep)
+    phase("build", seconds=t_build,
+          phases_s={k: v["total_s"] for k, v in spans.items()},
+          degree=st, all_reachable=reach, k1_launches=build_launches)
+    check(build_launches > 0, "the build launched the gather kernel 0 times")
+    check(st["zero"] == 0, f"{st['zero']} zero-degree nodes")
+    check(st["max"] <= 2 * cfg.M_pjbp, f"max degree {st['max']} > 64")
+    check(reach, "not every node is reachable from the entry point")
+    index.graph.validate()
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        path = os.path.join(tmp, "proj.index")
+        t0 = time.perf_counter()
+        index.save(path)
+        loaded = port.RoarGraphIndex.load(path)
+        t_io = time.perf_counter() - t0
+    check(loaded.graph.ep == index.graph.ep and np.array_equal(
+        loaded.graph.neighbors, index.graph.neighbors),
+        "save/load changed the graph")
+    phase("persist", seconds=t_io, bytes_ok=True)
+
+    searcher = port.Searcher(loaded, base_dev)
+    before = gather.launches
+    rows = []
+    for L in SEARCH_LS:
+        r = searcher.benchmark(eval_q, k=K, L=L, query_batch=query_batch,
+                               visited_mode="pool", expand=2, warmup=1)
+        check(np.isfinite(r["dists"]).all() and r["ids"].shape == (n_eval, K),
+              f"L={L}: results not finite / wrong shape")
+        row = {"L_pq": L, "qps": r["qps"],
+               "recall@10": port.compute_recall(r["ids"], gt_i, K),
+               "rderr": port.compute_rderr(r["dists"], gt_d, K, METRIC),
+               "avg_cmps": r["avg_cmps"], "avg_hops": r["avg_hops"]}
+        rows.append(row)
+        phase("search", **row)
+    search_launches = gather.launches - before
+    check(search_launches > 0, "the search launched the gather kernel 0 times")
+    check(rows[-1]["recall@10"] >= RECALL_FLOOR,
+          f"recall@10 at L={SEARCH_LS[-1]} is {rows[-1]['recall@10']:.4f} "
+          f"< {RECALL_FLOOR}")
+    launches = gather.launches
+    flag = gather.error_flag_value()
+    phase("main_path", k1_launches_build=build_launches,
+          k1_launches_search=search_launches, k1_launches_total=launches,
+          error_flag=flag)
+    check(flag == 0, "the gather kernel met an out-of-range index")
+    return {"launches": launches}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a "
+             "CUDA device and has no CPU fallback")
+    port = import_port()
+    from mysteryann_tpu_torch.ops import gather
+
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    phase("device", name=name, count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda)
+
+    secs = gather.build(force=True)
+    phase("build_kernel", source=KERNEL_SOURCE, seconds=secs,
+          ptxas=[ln.strip() for ln in gather.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln])
+
+    k1 = kernel_checks(gather, dev)
+    run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
+
+    print(json.dumps({"kernels": [{
+        "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": run["launches"],
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"]}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,45 @@
+"""mysteryann_tpu_torch — the PyTorch + CUDA port of mysteryann_tpu.
+
+A second package beside the JAX one, for an NVIDIA H100. It mirrors the
+JAX package's module paths and public names; the JAX package stays the
+reference, and tests hold each ported module against it on the same
+inputs. This package imports torch, numpy and the standard library only —
+never jax, and nothing of ``mysteryann_tpu``.
+
+Ported so far: the RoarGraph build-then-search path —
+``make_cross_modal`` → ``exact_knn`` → ``build_roargraph`` (classic
+phase-D engine) → ``RoarGraphIndex.save``/``load`` → ``Searcher.search``
+→ ``compute_recall``. Every row fetch on that path goes through the
+hand-written CUDA row gather (``ops.gather``, source ``csrc/gather.cu``),
+built with nvcc at first use on a CUDA device. ROADMAP.md lists what is
+still to come.
+"""
+
+__version__ = "0.1.0"
+
+from mysteryann_tpu_torch.utils.params import BuildConfig, SearchConfig, Parameters  # noqa: F401
+from mysteryann_tpu_torch.utils.timers import Timer  # noqa: F401
+from mysteryann_tpu_torch.utils.metrics import compute_recall, compute_rderr  # noqa: F401
+from mysteryann_tpu_torch.index import index_kinds, get_index_cls, register_index  # noqa: F401
+from mysteryann_tpu_torch.ops.distances import (  # noqa: F401
+    Metric,
+    pairwise_dist,
+    point_dist,
+    normalize_rows,
+    squared_norms,
+    prepare_vectors,
+)
+from mysteryann_tpu_torch.ops.gather import gather_rows, gather_rows_any  # noqa: F401
+from mysteryann_tpu_torch.ops.knn import exact_knn, exact_knn_device, compute_ground_truth  # noqa: F401
+from mysteryann_tpu_torch.graph.adjacency import PaddedGraph, from_lists, to_lists  # noqa: F401
+from mysteryann_tpu_torch.graph.prune import batched_occlusion_prune, dists_to_src  # noqa: F401
+from mysteryann_tpu_torch.graph.roargraph import (  # noqa: F401
+    RoarGraphIndex,
+    build_roargraph,
+    compute_medoid,
+    save_projection_graph,
+    load_projection_graph,
+)
+from mysteryann_tpu_torch.search.beam import beam_search, search_batched, SearchResult  # noqa: F401
+from mysteryann_tpu_torch.search.searcher import Searcher  # noqa: F401
+from mysteryann_tpu_torch.io.synthetic import make_cross_modal  # noqa: F401

@@ -1,0 +1,55 @@
+"""Coarse-scan entry-point seeding.
+
+Port of ``mysteryann_tpu/search/seeding.py``. CPU graph indexes reach the
+target neighbourhood through upper hierarchy levels (HNSW) or a fixed
+medoid walk (the reference, RoarGraph src/index_bipartite.cpp:2322-2353).
+Here the same job is one matmul over a strided sample of the base, kept in
+bf16, returning per-query seeds that land the beam inside the target
+neighbourhood. The sample holds ~1/r of each query's true top-k, so the
+scan alone is no answer — the graph walk does the precision work.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mysteryann_tpu_torch.ops.distances import Metric
+from mysteryann_tpu_torch.ops.sort import topk_smallest
+
+
+def make_seed_sample(base_dev: torch.Tensor, rate: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Strided 1-in-`rate` sample of the (metric-prepared) base, kept in
+    bf16: (sample [S, d] bf16, row norms [S] f32, ids [S] int32)."""
+    n = base_dev.shape[0]
+    ids = torch.arange(0, n, rate, dtype=torch.int32, device=base_dev.device)
+    samp = base_dev[::rate]
+    return (samp.to(torch.bfloat16).contiguous(),
+            torch.sum(samp * samp, dim=1), ids)
+
+
+def seed_scan(samp, samp_sq, samp_ids, q, n_seeds: int, metric: Metric):
+    """Top-`n_seeds` sample members per query: (ids [B, S], dists [B, S]).
+
+    The scan reads bf16 values (the query is rounded to bf16 like the
+    sample) and accumulates their products in float32, which is what the
+    JAX package's bf16 matmul with a float32 result computes. Selection is
+    exact (the JAX package's ``approx_min_k`` is exact on its CPU backend),
+    ties going to the lower sample index.
+    """
+    metric = Metric.parse(metric)
+    ip = q.to(torch.bfloat16).float() @ samp.float().t()
+    if metric in (Metric.IP, Metric.COSINE):
+        dist = -ip
+    else:
+        # clamp: the bf16 ip can push ||q-s||² ulp-negative for a query
+        # equal to a sampled point
+        dist = torch.clamp(
+            torch.sum(q * q, dim=1, keepdim=True) - 2.0 * ip + samp_sq,
+            min=0.0)
+    vals, idx = topk_smallest(dist, n_seeds)
+    # vals carry bf16 rounding of the inputs; the classic Searcher passes
+    # seed_d=None so beam_search rescores the seeds in f32
+    return samp_ids[idx], vals
