@@ -1,31 +1,45 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time the row-gather kernel, then drive the RoarGraph build-then-search path
-once at full width.
+time both hand-written kernels (the row gather K1 and the binned scan K2),
+drive the RoarGraph build-then-search path once at full width, then the
+flat serving path in four precisions and two CLIs on the same world.
 
     python3 chip_smoke.py     # 1M x 128 base, 200k train queries, one card
 
 Phases, one line each before the last:
   1. device: the card's name and power limit (there is no CPU fallback);
-  2. build: nvcc compiles the gather kernel into mysteryann_tpu_torch/build/;
+  2. build_kernel: nvcc compiles csrc/gather.cu and csrc/scan.cu, in
+     parallel, into mysteryann_tpu_torch/build/; ptxas registers / spills;
   3. kernel: the gather kernel against torch.index_select on the card, bit
      for bit, at the path's shapes and a few odd ones; the out-of-range flag;
      median times of both;
-  4. main path on the bench's synthetic T2I world: exact kNN (train kNN and
+  4. kernel_scan: the scan kernel against binned_scan_ref on the card —
+     bit for bit on dyadic data at 8,192 queries x 1M x 128, within 1e-5
+     relative on Gaussian data, bit for bit at odd corpus sizes; median
+     times of both;
+  5. main path on the bench's synthetic T2I world: exact kNN (train kNN and
      ground truth), build_roargraph (classic engine), save/load,
      Searcher.search at L = 64, 100, 200; checks on the graph, on recall and
-     that the path went through the kernel.
-Then a JSON line with the kernel's record, and last a JSON line with the
+     that the path went through the gather kernel;
+  6. flat: FlatIndex in f32, bf16, int8 and scan precision on the same base,
+     eval queries and ground truth; recall floors, and that bf16 / int8 /
+     scan went through K1 and scan through K2;
+  7. cli: the port's compute_gt and search_flat (int8) CLIs through
+     their main() on the same world written as .fbin files.
+Then a JSON line with the kernels' records, and last a JSON line with the
 device. Any failed check exits non-zero before the last line is printed.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -41,6 +55,13 @@ SEARCH_LS = (64, 100, 200)
 RECALL_FLOOR = 0.90     # recall@10 at L_pq=200
 KERNEL_SOURCE = "mysteryann_tpu_torch/csrc/gather.cu"
 KERNEL_REPLACES = "mysteryann_tpu/ops/gather.py:52"
+SCAN_SOURCE = "mysteryann_tpu_torch/csrc/scan.cu"
+SCAN_REPLACES = "mysteryann_tpu/ops/scan.py:68"
+SCAN_RTOL = 1e-5        # Gaussian data: f32 sums in another order
+# recall@10 floors of FlatIndex per precision: f32 is exact; bf16 and int8
+# rerank a k·2 head; scan loses bin collisions (the JAX package's own
+# test floor for it, tests/test_scan.py)
+FLAT_FLOORS = {"f32": 0.999, "bf16": 0.99, "int8": 0.99, "scan": 0.97}
 
 
 def fail(msg: str) -> None:
@@ -259,7 +280,139 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
           k1_launches_search=search_launches, k1_launches_total=launches,
           error_flag=flag)
     check(flag == 0, "the gather kernel met an out-of-range index")
-    return {"launches": launches}
+    return {"launches": launches, "base": base, "base_dev": base_dev,
+            "eval_q": eval_q, "gt_d": gt_d, "gt_i": gt_i}
+
+
+def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
+    """Phase 4: the scan kernel against its plain version on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def dyadic(shape):
+        return torch.randint(-8, 9, shape, generator=g, device=dev) / 8
+
+    def run_both(q, tbl, nn):
+        got = scan.binned_scan(q, tbl, nn)
+        want = scan.binned_scan_ref(q, tbl, nn)
+        torch.cuda.synchronize()
+        return got, want
+
+    # (a) dyadic at the path's shape: every bf16 value and f32 sum is exact
+    q = dyadic((n_q, DIM)).to(torch.bfloat16)
+    tbl = scan.make_scan_table(dyadic((n, DIM)))
+    (kd, kj), (rd, rj) = run_both(q, tbl, n)
+    check(kd.shape == (n_q, scan.BINS) and kj.dtype == torch.int16,
+          f"scan kernel: shape/dtype {tuple(kd.shape)} {kj.dtype}")
+    check(torch.equal(kd, rd) and torch.equal(kj, rj),
+          "scan kernel (dyadic, path shape) differs from binned_scan_ref")
+    # (d) times at (a)'s shape; the plain version runs 512-query blocks
+    t_kernel = time_ms(lambda: scan.binned_scan(q, tbl, n), reps=3, trials=5)
+    t_plain = time_ms(lambda: scan.binned_scan_ref(q, tbl, n), reps=1,
+                      trials=5)
+    del tbl, kd, kj, rd, rj
+
+    # (b) Gaussian at the path's shape
+    qg = torch.randn((n_q, DIM), generator=g, device=dev)
+    tg = scan.make_scan_table(torch.randn((n, DIM), generator=g, device=dev))
+    (kd, kj), (rd, rj) = run_both(qg, tg, n)
+    err = (kd - rd).abs()
+    rel = float((err / rd.abs()).max())
+    j_diff = float((kj != rj).float().mean())
+    check(rel <= SCAN_RTOL, f"scan kernel (Gaussian): max relative error "
+                            f"{rel} > {SCAN_RTOL}")
+    max_err = float(err.max())
+    del tg, kd, kj, rd, rj, err
+
+    # (c) odd corpus sizes: n = BINS; tail masks and unwritten bins
+    odd = [scan.BINS, 3 * 512 + 17, 9 * 512 + 5]
+    for nn in odd:
+        (kd, kj), (rd, rj) = run_both(q[:1024], scan.make_scan_table(
+            dyadic((nn, DIM))), nn)
+        check(torch.equal(kd, rd) and torch.equal(kj, rj),
+              f"scan kernel differs from binned_scan_ref at n={nn}")
+    phase("kernel_scan", dyadic_bit_identical=True, shape=[n_q, n, DIM],
+          gaussian_max_rel_err=rel, gaussian_max_abs_err=max_err,
+          gaussian_j_differ_share=j_diff, odd_n_bit_identical=odd,
+          kernel_ms=t_kernel, plain_ms=t_plain)
+    return {"max_abs_err": max_err, "ms": t_kernel, "plain_ms": t_plain}
+
+
+def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
+              ) -> dict:
+    """Phase 6: FlatIndex in four precisions on the main path's world."""
+    base_dev, eval_q = world["base_dev"], world["eval_q"]
+    n = base_dev.shape[0]
+    k1 = k2 = 0
+    for prec in ("f32", "bf16", "int8", "scan"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        idx = port.FlatIndex(base_dev, METRIC, tile=n, oversample=2,
+                             precision=prec)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        gather.reset_launches()
+        scan.reset_launches()
+        r = idx.benchmark(eval_q, k=K, query_batch=query_batch)
+        l1, l2 = gather.launches, scan.launches
+        del idx
+        torch.cuda.empty_cache()
+        check(np.isfinite(r["dists"]).all()
+              and r["ids"].shape == (eval_q.shape[0], K),
+              f"flat {prec}: results not finite / wrong shape")
+        row = {"precision": prec, "qps": r["qps"],
+               "recall@10": port.compute_recall(r["ids"], world["gt_i"], K),
+               "rderr": port.compute_rderr(r["dists"], world["gt_d"], K,
+                                           METRIC),
+               "build_s": t_build, "k1_launches": l1, "k2_launches": l2,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        phase("flat", **row)
+        check(row["recall@10"] >= FLAT_FLOORS[prec],
+              f"flat {prec}: recall@10 {row['recall@10']:.4f} < "
+              f"{FLAT_FLOORS[prec]}")
+        if prec != "f32":
+            check(l1 > 0, f"flat {prec} launched the gather kernel 0 times")
+        if prec == "scan":
+            check(l2 > 0, "flat scan launched the scan kernel 0 times")
+        k1 += l1
+        k2 += l2
+    flag = gather.error_flag_value()
+    check(flag == 0, "the gather kernel met an out-of-range index (flat)")
+    return {"k1_launches": k1, "k2_launches": k2}
+
+
+def cli_path(world: dict, tmp_root: str = HERE) -> None:
+    """Phase 7: compute_gt and search_flat through their main() on the
+    world written as .fbin files."""
+    from mysteryann_tpu_torch.cli import compute_gt, search_flat
+    from mysteryann_tpu_torch.io import write_fbin
+
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        base_p = os.path.join(tmp, "base.fbin")
+        q_p = os.path.join(tmp, "eval.fbin")
+        gt_p = os.path.join(tmp, "gt.bin")
+        t0 = time.perf_counter()
+        write_fbin(base_p, world["base"])
+        write_fbin(q_p, world["eval_q"])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_gt = compute_gt.main([
+                "--base_data_path", base_p, "--query_path", q_p,
+                "--k", str(K), "--dist", METRIC, "--format", "gt",
+                "--out_path", gt_p])
+        check(rc_gt == 0, f"compute_gt exited {rc_gt}")
+        with contextlib.redirect_stdout(out):
+            rc_flat = search_flat.main([
+                "--base_data_path", base_p, "--query_path", q_p,
+                "--gt_path", gt_p, "--k", str(K), "--dist", METRIC,
+                "--query_batch", "8192", "--precision", "int8"])
+        check(rc_flat == 0, f"search_flat exited {rc_flat}")
+        lines = out.getvalue().strip().splitlines()
+        recall = float(lines[-1].split()[4])
+        phase("cli", compute_gt_rc=rc_gt, search_flat_rc=rc_flat,
+              search_flat_row=lines[-1].split(), recall=recall,
+              seconds=time.perf_counter() - t0)
+    check(recall >= 0.99, f"search_flat (int8) recall {recall} < 0.99")
 
 
 def main() -> None:
@@ -267,7 +420,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA device and has no CPU fallback")
     port = import_port()
-    from mysteryann_tpu_torch.ops import gather
+    from mysteryann_tpu_torch.ops import gather, scan
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -280,19 +433,32 @@ def main() -> None:
     phase("device", name=name, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    secs = gather.build(force=True)
-    phase("build_kernel", source=KERNEL_SOURCE, seconds=secs,
-          ptxas=[ln.strip() for ln in gather.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln])
+    # one nvcc per source, both started together
+    with ThreadPoolExecutor(2) as ex:
+        futures = [ex.submit(m.build, True) for m in (gather, scan)]
+        secs = [f.result() for f in futures]
+    for m, src, sec in ((gather, KERNEL_SOURCE, secs[0]),
+                        (scan, SCAN_SOURCE, secs[1])):
+        phase("build_kernel", source=src, seconds=sec,
+              ptxas=[ln.strip() for ln in m.build_log.splitlines()
+                     if "registers" in ln or "spill" in ln])
 
     k1 = kernel_checks(gather, dev)
+    k2 = kernel_scan(scan, dev)
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
+    flat = flat_path(port, gather, scan, run)
+    cli_path(run)
 
-    print(json.dumps({"kernels": [{
-        "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": run["launches"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": KERNEL_REPLACES,
+         "launches": run["launches"] + flat["k1_launches"],
+         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"]},
+        {"name": "binned_scan", "route": "cuda", "source": SCAN_SOURCE,
+         "replaces": SCAN_REPLACES, "launches": flat["k2_launches"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

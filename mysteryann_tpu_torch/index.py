@@ -9,14 +9,16 @@ holds the vector data pointers. Here the metric dispatch lives in
 `ops.distances.Metric`/`prepare_vectors` (cosine = normalize-then-IP,
 exactly the reference's convention), and the surface splits in two —
 index DATA (host/device tensors + save/load) is separate from the SEARCH
-engine bound to it. Port of ``mysteryann_tpu/index.py``; the kinds not yet
-ported (bipartite, flat, ivf, fused serving) are not registered here:
+engine bound to it. Port of ``mysteryann_tpu/index.py``. Registered:
+``roargraph`` and ``flat``; the kinds not yet ported (bipartite, ivf,
+fused serving) are not registered here:
 
 | reference                  | here                                      |
 |----------------------------|-------------------------------------------|
 | IndexBipartite::BuildRoarGraph | graph.build_roargraph → RoarGraphIndex |
 | Save/LoadProjectionGraph   | RoarGraphIndex.save/.load                 |
 | SearchRoarGraph            | search.Searcher                           |
+| (no counterpart)           | flat.FlatIndex (exact scan serving)       |
 
 This module's registry maps a string kind → container class, used by
 CLIs and tooling to resolve an index by name.
@@ -63,3 +65,4 @@ def get_index_cls(kind: str) -> Type:
 def _ensure_registered() -> None:
     # import sites apply the decorators
     import mysteryann_tpu_torch.graph.roargraph  # noqa: F401
+    import mysteryann_tpu_torch.flat  # noqa: F401

@@ -17,7 +17,9 @@ Precision, set once here for the whole package: float32 matmuls run in full
 float32 on the card — TF32 is off for matmuls and for cuDNN — so distances
 and the exact kNN ground truth agree with the JAX package's float32
 results (its ``precision="highest"``). The ``precision`` arguments kept for
-call-site parity therefore change nothing.
+call-site parity therefore change nothing. Scores of bf16 operands are f32,
+as the JAX package's ``preferred_element_type=float32`` makes them (a plain
+``bf16 @ bf16`` in torch would return bf16-rounded scores).
 """
 
 from __future__ import annotations
@@ -59,8 +61,25 @@ def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def squared_norms(x: torch.Tensor) -> torch.Tensor:
-    """||x_i||^2 per row — precomputable for the L2 expansion."""
+    """||x_i||^2 per row — precomputable for the L2 expansion.
+
+    A bf16 input gives a bf16 norm formed as the JAX package's compiled
+    ``pairwise_dist`` forms it: f32 products of the bf16 values, an f32
+    sum, one rounding to bf16."""
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        return torch.sum(xf * xf, dim=-1).to(torch.bfloat16)
     return torch.sum(x * x, dim=-1)
+
+
+def _ip_f32(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``q @ b.T`` with an f32 result. For bf16 operands it is what
+    ``preferred_element_type=float32`` gives: a bf16 × bf16 product is exact
+    in f32, so each operand (the caller's tile, never a whole resident
+    table) is upcast and the f32 matmul (TF32 off) accumulates."""
+    if q.dtype == torch.float32 and b.dtype == torch.float32:
+        return q @ b.transpose(-1, -2)
+    return q.float() @ b.float().transpose(-1, -2)
 
 
 def pairwise_dist(
@@ -70,20 +89,21 @@ def pairwise_dist(
     b_sqnorm: torch.Tensor | None = None,
     precision: str = "default",
 ) -> torch.Tensor:
-    """All-pairs distances ``[Bq, Cb]`` between query block and base block.
+    """All-pairs distances ``[Bq, Cb]`` between query block and base block,
+    in float32 for float32 or bf16 inputs.
 
     For COSINE the inputs are assumed pre-normalized (do it once at load,
     like the reference normalizes the dataset up front rather than inside
     the kernel — src/index_bipartite.cpp:176-182).
     """
     metric = Metric.parse(metric)
-    ip = q @ b.transpose(-1, -2)
+    ip = _ip_f32(q, b)
     if metric in (Metric.IP, Metric.COSINE):
         return -ip
     # L2: ||q||^2 - 2 q.b + ||b||^2 ; ||q||^2 is rank-preserving per query but
     # kept so absolute values match the reference's squared-L2 outputs.
-    qn = squared_norms(q)[..., None]
-    bn = squared_norms(b) if b_sqnorm is None else b_sqnorm
+    qn = squared_norms(q)[..., None].float()
+    bn = (squared_norms(b) if b_sqnorm is None else b_sqnorm).float()
     return torch.clamp(qn - 2.0 * ip + bn[None, :], min=0.0)
 
 

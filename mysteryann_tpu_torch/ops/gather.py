@@ -22,21 +22,15 @@ went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import time
 from typing import Dict
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gather.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+from mysteryann_tpu_torch.ops._nvcc import CSRC, build_library
+
+SOURCE = os.path.join(CSRC, "gather.cu")
 
 launches = 0       # kernel launches since import (or the last reset)
 build_log = ""     # compiler output of the last build (registers, spills)
@@ -44,36 +38,14 @@ _fn = None         # the bound C entry point, once loaded
 _flags: Dict[int, torch.Tensor] = {}   # device index -> int32 [1] error flag
 
 
-def _find_nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the gather kernel is built from "
-                       "csrc/gather.cu with the CUDA toolkit")
-
-
 def build(force: bool = False) -> float:
     """Compile ``csrc/gather.cu`` (unless a library of the same source is
     already built) and load it. Returns the seconds spent compiling."""
     global _fn, build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libmsann_gather_{digest}.so")
-    secs = 0.0
-    if force or not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        secs = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-    fn = ctypes.CDLL(so).msann_gather_rows
+    lib, secs, log = build_library(SOURCE, force=force)
+    if log:
+        build_log = log
+    fn = lib.msann_gather_rows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]

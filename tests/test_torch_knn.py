@@ -125,3 +125,112 @@ def test_exact_knn_cosine_and_ground_truth():
     assert ti.dtype == np.uint32
     np.testing.assert_array_equal(ti, gi)
     np.testing.assert_allclose(tdd, gd, rtol=1e-5, atol=1e-5)
+
+
+# -- bf16 operands, int8 scans -------------------------------------------
+
+
+def _bf16_pair(rng, nq, nb, d):
+    """bf16 query and base blocks as (jax arrays, torch tensors) holding
+    the same values."""
+    q = jnp.asarray(rng.standard_normal((nq, d)).astype(np.float32),
+                    jnp.bfloat16)
+    b = jnp.asarray(rng.standard_normal((nb, d)).astype(np.float32),
+                    jnp.bfloat16)
+    tq = torch.from_numpy(np.array(q.astype(jnp.float32))).to(torch.bfloat16)
+    tb = torch.from_numpy(np.array(b.astype(jnp.float32))).to(torch.bfloat16)
+    return q, b, tq, tb
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_pairwise_dist_bf16_operands_f32_scores(metric):
+    """bf16 × bf16 scores come out in f32, as ``preferred_element_type=
+    float32`` makes them; L2 norms are formed as the compiled JAX function
+    forms them (f32 products, f32 sum, one bf16 rounding). Tolerance: f32
+    summation order only — 1e-6 of the largest |score| (every score is a
+    128-term f32 sum bounded by it)."""
+    rng = np.random.default_rng(21)
+    q, b, tq, tb = _bf16_pair(rng, 64, 300, 128)
+    want = np.asarray(jd.pairwise_dist(q, b, metric=jd.Metric.parse(metric)))
+    got = td.pairwise_dist(tq, tb, metric=metric)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+def test_quantize_int8_bit_identical():
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((200, 48)).astype(np.float32) * 3
+    x[5] = 0.0                                  # the 1e-30 scale floor
+    x[7, 3] = x[7].max() * 0.5 + 1e-3           # rounding near .5 steps
+    for jf, tf in ((jk.quantize_rows_int8, tk.quantize_rows_int8),
+                   (jk.quantize_global_int8, tk.quantize_global_int8)):
+        wq, ws = jf(jnp.asarray(x))
+        gq, gs = tf(torch.from_numpy(x))
+        assert gq.dtype == torch.int8 and gs.dtype == torch.float32
+        np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
+        np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+
+
+def _untied(scores: np.ndarray, k: int) -> bool:
+    """No two of each row's k+1 smallest scores are equal, so the top-k is
+    one set in one order whatever the tie rule."""
+    head = np.sort(scores, axis=1)[:, :k + 1]
+    return bool(np.all(np.diff(head, axis=1) > 0))
+
+
+@pytest.mark.parametrize("tile", [333, 262144])
+def test_int8_global_knn_matches(tile):
+    rng = np.random.default_rng(23)
+    base = rng.standard_normal((1500, 64)).astype(np.float32)
+    q = rng.standard_normal((40, 64)).astype(np.float32)
+    b_i8, _ = jk.quantize_global_int8(jnp.asarray(base))
+    q_i8, _ = jk.quantize_rows_int8(jnp.asarray(q))
+    s32 = np.asarray(q_i8, np.int64) @ np.asarray(b_i8, np.int64).T
+    assert _untied(-s32, 10)
+    wd, wi = jk.int8_global_knn_device(q_i8, b_i8, k=10, tile=tile)
+    gd, gi = tk.int8_global_knn_device(
+        torch.from_numpy(np.asarray(q_i8)), torch.from_numpy(np.asarray(b_i8)),
+        k=10, tile=tile)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))   # exact s32
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_int8_knn_matches(metric):
+    """Row-scale int8 scan: the rescale keeps the JAX package's elementwise
+    order, so IP scores are bit-identical; L2 adds ||q||² summed in another
+    order — 1e-6 relative."""
+    rng = np.random.default_rng(24)
+    base = rng.standard_normal((1200, 48)).astype(np.float32)
+    q = rng.standard_normal((30, 48)).astype(np.float32)
+    b_i8, b_s = jk.quantize_rows_int8(jnp.asarray(base))
+    norm = (jnp.sum(jnp.asarray(base) ** 2, axis=1) if metric == "l2"
+            else None)
+    m = jd.Metric.parse(metric)
+    wd, wi = jk.int8_knn_device(jnp.asarray(q), b_i8, b_s, k=10, metric=m,
+                                tile=500, base_norm=norm)
+    t_norm = torch.from_numpy(np.asarray(norm)) if norm is not None else None
+    gd, gi = tk.int8_knn_device(
+        torch.from_numpy(q), torch.from_numpy(np.asarray(b_i8)),
+        torch.from_numpy(np.asarray(b_s)), k=10, metric=metric, tile=500,
+        base_norm=t_norm)
+    wd = np.asarray(wd)
+    assert np.all(np.diff(wd, axis=1) > 0)      # no score ties in the head
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    if metric == "ip":
+        np.testing.assert_array_equal(gd.numpy(), wd)
+    else:
+        np.testing.assert_allclose(gd.numpy(), wd, rtol=1e-6)
+
+
+def test_int8_knn_l2_needs_norm_and_exact_dim():
+    q = torch.zeros((4, 16))
+    b_i8 = torch.zeros((10, 16), dtype=torch.int8)
+    with pytest.raises(ValueError, match="base_norm"):
+        tk.int8_knn_device(q, b_i8, torch.ones(10), k=3, metric="l2")
+    # the CPU's f32 route is exact only while int8 sums fit 24 bits
+    wide = torch.zeros((4, 2048), dtype=torch.int8)
+    with pytest.raises(ValueError, match="exact"):
+        tk.int8_global_knn_device(wide, wide, k=2)
