@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
 time both hand-written kernels (the row gather K1 and the binned scan K2),
 drive the RoarGraph build-then-search path once at full width, then the
-flat serving path in four precisions and two CLIs on the same world.
+flat serving path in four precisions, the fused engine (the bench's build
+recipe and its seeded serving sweep) and three CLIs on the same world.
 
     python3 chip_smoke.py     # 1M x 128 base, 200k train queries, one card
 
@@ -11,7 +12,8 @@ Phases, one line each before the last:
      parallel, into mysteryann_tpu_torch/build/; ptxas registers / spills;
   3. kernel: the gather kernel against torch.index_select on the card, bit
      for bit, at the path's shapes and a few odd ones; the out-of-range flag;
-     median times of both;
+     median times of both; then kernel_fused_rows: the same at the fused
+     engine's byte rows (uint8 [1M+1, 6528] serving, [1M+1, 4608] build);
   4. kernel_scan: the scan kernel against binned_scan_ref on the card —
      bit for bit on dyadic data at 8,192 queries x 1M x 128, within 1e-5
      relative on Gaussian data, bit for bit at odd corpus sizes; median
@@ -23,8 +25,16 @@ Phases, one line each before the last:
   6. flat: FlatIndex in f32, bf16, int8 and scan precision on the same base,
      eval queries and ground truth; recall floors, and that bf16 / int8 /
      scan went through K1 and scan through K2;
-  7. cli: the port's compute_gt and search_flat (int8) CLIs through
-     their main() on the same world written as .fbin files.
+  7. fused_build: build_roargraph with the bench's recipe (2 phase-D
+     passes, expand 4, int4 rows, engine "auto", which resolves to fused);
+     the same graph checks, the phase-D split (walk, pack, fold), peak GiB;
+  8. fused_serve: FusedSearcher(max_degree=48, seed_sample=2, bits=8) over
+     the bench's ten (expand, seeds, L) rows, then the classic Searcher on
+     the same graph at L=100 (the bench's parity row); one row must reach
+     recall@10 >= 0.95;
+  9. cli: the port's compute_gt, search_flat (int8) and search_roargraph
+     (--engine fused, seeded) CLIs through their main() on the same world
+     written as .fbin files.
 Then a JSON line with the kernels' records, and last a JSON line with the
 device. Any failed check exits non-zero before the last line is printed.
 """
@@ -62,6 +72,17 @@ SCAN_RTOL = 1e-5        # Gaussian data: f32 sums in another order
 # rerank a k·2 head; scan loses bin collisions (the JAX package's own
 # test floor for it, tests/test_scan.py)
 FLAT_FLOORS = {"f32": 0.999, "bf16": 0.99, "int8": 0.99, "scan": 0.97}
+# bench.py's graph recipe (M_SQ / M_PJBP / L_PJPQ, BUILD_EXPAND / BUILD_BITS,
+# connectivity_passes=2, engine "auto") and seeded serving (SEED_SAMPLE,
+# SEED_MAX_DEGREE, SEEDED_L_SWEEP, TARGET_RECALL)
+FUSED_BUILD = dict(M_sq=64, M_pjbp=32, L_pjpq=128, metric=METRIC,
+                   query_batch=8192, search_batch=8192, connectivity_passes=2,
+                   connectivity_expand=4, connectivity_bits=4)
+SEED_SAMPLE, SEED_MAX_DEGREE = 2, 48
+SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
+                  (4, 40, 64), (4, 40, 80), (4, 40, 112),
+                  (3, 48, 144), (3, 48, 176), (2, 48, 224))
+TARGET_RECALL = 0.95
 
 
 def fail(msg: str) -> None:
@@ -168,6 +189,43 @@ def kernel_checks(gather, dev) -> dict:
     phase("kernel_flag", out_of_range_flagged=True, reset=True)
     return {"max_abs_err": max_err, "ms": timings["f32"]["kernel_ms"],
             "plain_ms": timings["f32"]["index_select_ms"]}
+
+
+def kernel_fused_rows(gather, dev, n_rows: int = 1_000_001,
+                      n_idx: int = 32768) -> dict:
+    """Phase 3b: the gather kernel on the fused engine's byte-row tables —
+    serving (bits 8, M 48: 6,528 B) and build (bits 4, W 64: 4,608 B) — bit
+    for bit against index_select, with median times of both (~11 GB of
+    tables, freed after each case)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    timings = {}
+    for name, row_bytes in (("serve_u8_6528", 6528), ("build_u8_4608", 4608)):
+        table = torch.randint(0, 256, (n_rows, row_bytes), generator=g,
+                              device=dev, dtype=torch.uint8)
+        idx = torch.randint(0, n_rows, (n_idx,), generator=g, device=dev,
+                            dtype=torch.int32)
+        idx[0], idx[-1] = 0, n_rows - 1
+        got = gather.gather_rows(table, idx)
+        want = gather.gather_rows_ref(table, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"kernel {name}: differs from index_select")
+        del got, want
+        t_k = time_ms(lambda: gather.gather_rows(table, idx))
+        t_p = time_ms(lambda: gather.gather_rows_ref(table, idx))
+        moved = 2 * n_idx * row_bytes   # bytes read + written
+        timings[name] = {"kernel_ms": t_k, "index_select_ms": t_p,
+                         "kernel_gb_s": moved / t_k / 1e6,
+                         "index_select_gb_s": moved / t_p / 1e6,
+                         "rows": n_idx, "row_bytes": row_bytes,
+                         "table_rows": n_rows}
+        del table, idx
+        torch.cuda.empty_cache()
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (byte rows)")
+    phase("kernel_fused_rows", bit_identical=True, timings=timings)
+    return timings
 
 
 def reachable_all(neighbors: np.ndarray, ep: int) -> bool:
@@ -281,7 +339,8 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
           error_flag=flag)
     check(flag == 0, "the gather kernel met an out-of-range index")
     return {"launches": launches, "base": base, "base_dev": base_dev,
-            "eval_q": eval_q, "gt_d": gt_d, "gt_i": gt_i}
+            "eval_q": eval_q, "gt_d": gt_d, "gt_i": gt_i,
+            "train_q": train_q, "knn": knn}
 
 
 def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
@@ -381,16 +440,102 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
     return {"k1_launches": k1, "k2_launches": k2}
 
 
-def cli_path(world: dict, tmp_root: str = HERE) -> None:
-    """Phase 7: compute_gt and search_flat through their main() on the
-    world written as .fbin files."""
-    from mysteryann_tpu_torch.cli import compute_gt, search_flat
+def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
+    """Phases 7-8: the bench's fused build recipe, then seeded FusedSearcher
+    serving over the bench's sweep and the classic parity row."""
+    from mysteryann_tpu_torch.graph.roargraph import _resolve_engine
+    from mysteryann_tpu_torch.utils.trace import tracer
+
+    base_dev, eval_q = world["base_dev"], world["eval_q"]
+    n, d = base_dev.shape
+    cfg = port.BuildConfig(**FUSED_BUILD)
+    engine = _resolve_engine(cfg, n, d)
+    check(engine == "fused", f"engine 'auto' resolved to {engine!r} at "
+                             f"{n} x {d}, not 'fused'")
+    tr = tracer()
+    tr.reset()
+    torch.cuda.reset_peak_memory_stats()
+    gather.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = port.build_roargraph(base_dev, world["train_q"], world["knn"],
+                                 cfg, verbose=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = gather.launches
+    spans = tr.summary()["spans"]
+    st = index.graph.degree_stats()
+    reach = reachable_all(index.graph.neighbors, index.graph.ep)
+    flag = gather.error_flag_value()
+    phase("fused_build", engine=engine, seconds=t_build,
+          phases_s={k: v["total_s"] for k, v in spans.items()},
+          degree=st, all_reachable=reach, k1_launches=build_launches,
+          error_flag=flag,
+          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(build_launches > 0, "the fused build launched K1 0 times")
+    check(flag == 0, "the gather kernel met an out-of-range index (build)")
+    check(st["zero"] == 0, f"fused build: {st['zero']} zero-degree nodes")
+    check(st["max"] <= 2 * cfg.M_pjbp,
+          f"fused build: max degree {st['max']} > {2 * cfg.M_pjbp}")
+    check(reach, "fused build: not every node is reachable")
+    index.graph.validate()
+
+    torch.cuda.reset_peak_memory_stats()
+    fs = port.FusedSearcher(index, base_dev, max_degree=SEED_MAX_DEGREE,
+                            seed_sample=SEED_SAMPLE, bits=8)
+    gather.reset_launches()
+    rows = []
+    for expand, seeds, L in SEEDED_L_SWEEP:
+        r = fs.benchmark(eval_q, k=K, L=L, query_batch=query_batch,
+                         expand=expand, seeds=min(seeds, L), warmup=1)
+        check(np.isfinite(r["dists"]).all()
+              and r["ids"].shape == (eval_q.shape[0], K),
+              f"fused L={L}: results not finite / wrong shape")
+        row = {"expand": expand, "seeds": seeds, "L_pq": L, "qps": r["qps"],
+               "recall@10": port.compute_recall(r["ids"], world["gt_i"], K),
+               "rderr": port.compute_rderr(r["dists"], world["gt_d"], K,
+                                           METRIC),
+               "avg_cmps": r["avg_cmps"], "avg_hops": r["avg_hops"]}
+        rows.append(row)
+        phase("fused_serve", **row)
+    serve_launches = gather.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del fs
+    torch.cuda.empty_cache()
+    best = max(r["recall@10"] for r in rows)
+    at_target = [r for r in rows if r["recall@10"] >= TARGET_RECALL]
+    phase("fused_serve_summary", k1_launches=serve_launches,
+          best_recall=best, peak_gib=peak,
+          best_qps_at_target=max((r["qps"] for r in at_target),
+                                 default=None))
+    check(serve_launches > 0, "fused serving launched K1 0 times")
+    check(bool(at_target), f"no fused row reached recall@10 >= "
+                           f"{TARGET_RECALL} (best {best:.4f})")
+
+    searcher = port.Searcher(index, base_dev)
+    r = searcher.benchmark(eval_q, k=K, L=100, query_batch=query_batch,
+                           visited_mode="pool", expand=2, warmup=1)
+    phase("fused_graph_classic_row", L_pq=100, qps=r["qps"],
+          **{"recall@10": port.compute_recall(r["ids"], world["gt_i"], K)},
+          avg_cmps=r["avg_cmps"], avg_hops=r["avg_hops"])
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (fused serving)")
+    return {"index": index, "k1_launches": build_launches + serve_launches}
+
+
+def cli_path(world: dict, gather, fused_index, tmp_root: str = HERE) -> int:
+    """Phase 9: compute_gt, search_flat and search_roargraph (fused,
+    seeded) through their main() on the world written as .fbin files.
+    Returns the K1 launches of the fused search CLI."""
+    from mysteryann_tpu_torch.cli import (compute_gt, search_flat,
+                                          search_roargraph)
     from mysteryann_tpu_torch.io import write_fbin
 
     with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
         base_p = os.path.join(tmp, "base.fbin")
         q_p = os.path.join(tmp, "eval.fbin")
         gt_p = os.path.join(tmp, "gt.bin")
+        idx_p = os.path.join(tmp, "fused.index")
         t0 = time.perf_counter()
         write_fbin(base_p, world["base"])
         write_fbin(q_p, world["eval_q"])
@@ -412,13 +557,37 @@ def cli_path(world: dict, tmp_root: str = HERE) -> None:
         phase("cli", compute_gt_rc=rc_gt, search_flat_rc=rc_flat,
               search_flat_row=lines[-1].split(), recall=recall,
               seconds=time.perf_counter() - t0)
-    check(recall >= 0.99, f"search_flat (int8) recall {recall} < 0.99")
+        check(recall >= 0.99, f"search_flat (int8) recall {recall} < 0.99")
+
+        fused_index.save(idx_p)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        gather.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = search_roargraph.main([
+                "--base_data_path", base_p, "--projection_index_save_path",
+                idx_p, "--query_path", q_p, "--gt_path", gt_p,
+                "--k", str(K), "--engine", "fused", "--seeds", "40",
+                "--seed_sample", "2", "--expand", "4", "--L_pq", "64",
+                "--query_batch", "8192"])
+        launches = gather.launches
+        check(rc == 0, f"search_roargraph --engine fused exited {rc}")
+        row = out.getvalue().strip().splitlines()[-1].split()
+        recall = float(row[4])
+        phase("cli_fused", search_roargraph_rc=rc, row=row, recall=recall,
+              k1_launches=launches, seconds=time.perf_counter() - t0)
+    check(launches > 0, "search_roargraph --engine fused launched K1 0 "
+                        "times")
+    check(recall >= TARGET_RECALL, f"search_roargraph --engine fused recall "
+                                   f"{recall} < {TARGET_RECALL}")
+    return launches
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA device and has no CPU fallback")
+    t_start = time.perf_counter()
     port = import_port()
     from mysteryann_tpu_torch.ops import gather, scan
 
@@ -444,15 +613,19 @@ def main() -> None:
                      if "registers" in ln or "spill" in ln])
 
     k1 = kernel_checks(gather, dev)
+    kernel_fused_rows(gather, dev)
     k2 = kernel_scan(scan, dev)
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
     flat = flat_path(port, gather, scan, run)
-    cli_path(run)
+    fused = fused_path(port, gather, run)
+    k1_cli = cli_path(run, gather, fused["index"])
+    phase("smoke", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
-         "launches": run["launches"] + flat["k1_launches"],
+         "launches": (run["launches"] + flat["k1_launches"]
+                      + fused["k1_launches"] + k1_cli),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"]},
         {"name": "binned_scan", "route": "cuda", "source": SCAN_SOURCE,

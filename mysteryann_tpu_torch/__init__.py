@@ -9,19 +9,21 @@ never jax, and nothing of ``mysteryann_tpu``.
 Ported so far:
 
 - the RoarGraph build-then-search path — ``make_cross_modal`` →
-  ``exact_knn`` → ``build_roargraph`` (classic phase-D engine) →
-  ``RoarGraphIndex.save``/``load`` → ``Searcher.search`` →
-  ``compute_recall``;
+  ``exact_knn`` → ``build_roargraph`` (classic or fused phase-D engine;
+  "auto" picks as the JAX package does) → ``RoarGraphIndex.save``/``load``
+  → ``Searcher.search`` or seeded ``FusedSearcher.search`` (quantized
+  neighbour blocks inline in one byte row per node) → ``compute_recall``;
 - flat serving — ``FlatIndex`` in f32, bf16, int8 and scan precision, with
   the int8 kNN scans and an exact f32 rerank;
 - ``io.formats`` (fbin / ibin / ground-truth files) and the CLIs
-  ``compute_gt``, ``build_roargraph``, ``search_roargraph`` (classic
-  engine) and ``search_flat``, run as ``python -m
+  ``compute_gt``, ``build_roargraph``, ``search_roargraph`` (classic and
+  fused engines) and ``search_flat``, run as ``python -m
   mysteryann_tpu_torch.cli.<name>``.
 
 Two hand-written CUDA kernels carry these paths, each built with nvcc at
 first use on a CUDA device: the row gather (``ops.gather``, source
-``csrc/gather.cu``) for every row fetch, and the binned scan (``ops.scan``,
+``csrc/gather.cu``) for every row fetch — the fused engine's byte rows
+included — and the binned scan (``ops.scan``,
 ``csrc/scan.cu``) for ``FlatIndex(precision="scan")``. ROADMAP.md lists
 what is still to come.
 """
@@ -62,6 +64,7 @@ from mysteryann_tpu_torch.graph.roargraph import (  # noqa: F401
 )
 from mysteryann_tpu_torch.search.beam import beam_search, search_batched, SearchResult  # noqa: F401
 from mysteryann_tpu_torch.search.searcher import Searcher  # noqa: F401
+from mysteryann_tpu_torch.search.fused import FusedSearcher, pack_neighbor_table  # noqa: F401
 from mysteryann_tpu_torch.io.synthetic import make_cross_modal  # noqa: F401
 from mysteryann_tpu_torch.io.formats import (  # noqa: F401
     read_fbin,

@@ -5,8 +5,8 @@ train→base kNN, build the projection graph, save it.
 
 Unlike the reference, `--learn_base_nn_path` is optional: when omitted the
 exact kNN is computed in-framework on the device (the reference requires a
-precomputed DiskANN file). The connectivity pass runs the classic engine,
-the one the port has.
+precomputed DiskANN file). The connectivity engine is the config's
+default, "auto", as in the JAX package's CLI.
 
     python -m mysteryann_tpu_torch.cli.build_roargraph --base_data_path B.fbin \
         --sampled_query_data_path T.fbin --projection_index_save_path I.index
@@ -48,8 +48,7 @@ def main(argv=None) -> int:
     cfg = BuildConfig(M_sq=args.M_sq, M_pjbp=args.M_pjbp,
                       L_pjpq=args.L_pjpq, metric=args.dist,
                       query_batch=args.query_batch,
-                      search_batch=args.search_batch,
-                      connectivity_engine="classic")
+                      search_batch=args.search_batch)
     index = build_roargraph(base_dev, train_q, knn, cfg)
     index.save(args.projection_index_save_path)
     dt = time.perf_counter() - t0

@@ -5,9 +5,6 @@ index + queries + GT, sweep L_pq, report QPS / avg cmps / latency /
 recall@k / rderr / avg hops per row, optionally appending CSV
 (schema: tests/test_search_roargraph.cpp:185-188, 233-236).
 
-Only the classic engine is ported: ``--engine fused`` and ``--bits 4``
-exit with an error until the fused searcher is (ROADMAP.md, Queue 1 a).
-
     python -m mysteryann_tpu_torch.cli.search_roargraph --base_data_path B.fbin \
         --projection_index_save_path I.index --query_path Q.fbin \
         --gt_path gt.bin --k 10 --L_pq 64 100 200
@@ -27,11 +24,9 @@ from mysteryann_tpu_torch.cli.common import (
 )
 from mysteryann_tpu_torch.graph import RoarGraphIndex
 from mysteryann_tpu_torch.io import read_gt_with_dist
+from mysteryann_tpu_torch.search.fused import FusedSearcher
 from mysteryann_tpu_torch.search.searcher import Searcher
 from mysteryann_tpu_torch.utils.metrics import compute_recall, compute_rderr
-
-_NOT_PORTED = ("is not ported yet: the fused searcher is ROADMAP.md Queue 1 "
-               "item a; use --engine classic")
 
 
 def main(argv=None) -> int:
@@ -40,8 +35,9 @@ def main(argv=None) -> int:
     p.add_argument("--projection_index_save_path", required=True)
     p.add_argument("--engine", default="classic",
                    choices=("classic", "fused"),
-                   help="classic = lockstep beam search over f32 vectors "
-                        "(fused is not ported yet)")
+                   help="fused = int8 inline neighbor blocks, one row "
+                        "gather per expansion (index must fit the packed "
+                        "table)")
     p.add_argument("--seeds", type=int, default=0,
                    help="per-query entry points from a coarse sample scan "
                         "(replaces the medoid walk; see search/seeding.py)")
@@ -52,13 +48,10 @@ def main(argv=None) -> int:
                    help="closest-unexpanded entries popped per lockstep "
                         "step (amortizes pool maintenance)")
     p.add_argument("--bits", type=int, default=8, choices=(8, 4),
-                   help="fused traversal-row quantization (fused engine "
-                        "only)")
+                   help="fused traversal-row quantization; 4 halves the "
+                        "per-expansion row bytes (reported distances stay "
+                        "exact f32 via the rerank)")
     args = p.parse_args(argv)
-    if args.engine == "fused":
-        p.error(f"--engine fused {_NOT_PORTED}")
-    if args.bits != 8:
-        p.error(f"--bits {args.bits} (fused engine only) {_NOT_PORTED}")
 
     base = load_vectors(args.base_data_path)
     queries = load_vectors(args.query_path)
@@ -71,8 +64,14 @@ def main(argv=None) -> int:
                 f"--base_data_path has {base.shape[0]} rows — wrong "
                 "corpus for this index?")
     ss = args.seed_sample or (8 if args.seeds else 0)
-    searcher = Searcher(index, base, seed_sample=ss,
-                        device=default_device())
+    if args.engine == "fused":
+        searcher = FusedSearcher(index, base, seed_sample=ss, bits=args.bits,
+                                 device=default_device())
+    else:
+        if args.bits != 8:
+            p.error("--bits applies to --engine fused only")
+        searcher = Searcher(index, base, seed_sample=ss,
+                            device=default_device())
     print(f"base {base.shape}, queries {queries.shape}, "
           f"graph degree avg {index.graph.degree_stats()['avg']:.1f}, "
           f"metric {index.metric.value}")

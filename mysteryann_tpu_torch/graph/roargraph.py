@@ -30,9 +30,10 @@ nearest reachable nodes.
 Entry point: the medoid — argmin squared-L2 to the base centroid,
 regardless of metric (CalculateProjectionep:2004-2041).
 
-What the port takes: the classic phase-D engine (the f32 lockstep beam)
-with the single-jit fold at every N. The fused engine, the slab fold that
-exists for 16 GB chips, the host reverse-aggregation path and the native
+What the port takes: both phase-D engines — classic (the f32 lockstep
+beam) and fused (quantized neighbour-block byte rows, search/fused.py) —
+with the single fold at every N. The slab fold that exists for 16 GB
+chips, the host reverse-aggregation and projection paths and the native
 persistence fast path are not ported (ROADMAP.md). Tensors are updated in
 place where the JAX package donated its buffers; the supply graph is a
 fresh copy that never aliases the projection it starts from. Every row of
@@ -61,8 +62,13 @@ from mysteryann_tpu_torch.ops.distances import Metric, prepare_vectors
 from mysteryann_tpu_torch.ops.gather import gather_rows_any
 from mysteryann_tpu_torch.ops.sort import sort_multi
 from mysteryann_tpu_torch.search.beam import beam_search
+from mysteryann_tpu_torch.search.fused import (_fused_beam, _pack_chunk,
+                                               _row_bytes,
+                                               pack_neighbor_table)
+from mysteryann_tpu_torch.search.seeding import make_seed_sample, seed_scan
 from mysteryann_tpu_torch.utils.params import BuildConfig
 from mysteryann_tpu_torch.utils.timers import Timer
+from mysteryann_tpu_torch.utils.trace import tracer
 
 _I32 = torch.int32
 
@@ -297,31 +303,27 @@ def _batched_prune_rows(
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def _row_bytes(M: int, d: int, bits: int = 8) -> int:
-    """Bytes of one fused-engine table row (search/fused.py's layout), for
-    the ``connectivity_engine="auto"`` rule."""
-    r = M * d * bits // 8 + 8 * M
-    return -(-r // 1024) * 1024
+def _budget_row_bytes(M: int, d: int, bits: int = 8) -> int:
+    """The JAX package's fused table row size — this package's row padded
+    to a multiple of 1 KB for the TPU's DMA tiling. Only the
+    ``connectivity_engine="auto"`` rule reads it, so that "auto" resolves
+    alike in both packages."""
+    return -(-_row_bytes(M, d, bits) // 1024) * 1024
 
 
 def _resolve_engine(cfg, n: int, d: int) -> str:
     """Resolve connectivity_engine='auto' for corpus (n, d) by the JAX
-    package's rule. Only the classic engine is ported: a config that is or
-    resolves to "fused" raises."""
+    package's rule: fused when dims sit on the byte-row boundary and the
+    table fits a 10 GB budget — one shared rule, so the checkpoint tag and
+    the pass itself cannot disagree."""
     engine = cfg.connectivity_engine
     if engine == "auto":
         dim_mult = 8 if cfg.connectivity_bits == 8 else 16
         w16 = -(-2 * cfg.M_pjbp // 16) * 16
         engine = ("fused" if d % dim_mult == 0
-                  and (n + 1) * _row_bytes(w16, d, cfg.connectivity_bits)
+                  and (n + 1) * _budget_row_bytes(w16, d,
+                                                  cfg.connectivity_bits)
                   <= 10e9 else "classic")
-    if engine == "fused":
-        raise NotImplementedError(
-            "connectivity_engine 'fused' is not ported yet (ROADMAP.md "
-            "Queue 1: the fused build engine); pass "
-            "connectivity_engine='classic'"
-            + (" (this config's 'auto' resolves to fused)"
-               if cfg.connectivity_engine == "auto" else ""))
     return engine
 
 
@@ -340,9 +342,14 @@ def _phase_d_knob_tag(cfg, n: int, d: int) -> str:
     outputs (the knobs are fingerprint-neutral so phases A-C survive a
     knob change; see build_roargraph)."""
     engine = _resolve_engine(cfg, n, d)
-    return (f"{engine}_e{cfg.connectivity_expand}"
-            f"i{cfg.connectivity_iters}j{_rounds_for_pass(cfg, 1)}"
-            f"h{cfg.history_mult}")
+    t = (f"{engine}_e{cfg.connectivity_expand}"
+         f"i{cfg.connectivity_iters}j{_rounds_for_pass(cfg, 1)}"
+         f"h{cfg.history_mult}")
+    if engine == "fused":
+        t += f"b{cfg.connectivity_bits}"
+        if cfg.connectivity_seeds:
+            t += f"s{cfg.connectivity_seeds}r{cfg.connectivity_seed_sample}"
+    return t
 
 
 def _merge_fr_block(own_b: torch.Tensor, rev_b: torch.Tensor, n: int,
@@ -453,7 +460,7 @@ def build_roargraph(
     M = cfg.M_pjbp
     n = base.shape[0]
     nq = train_queries.shape[0]
-    knobs = _phase_d_knob_tag(cfg, n, base.shape[1])  # raises on "fused"
+    knobs = _phase_d_knob_tag(cfg, n, base.shape[1])
     # progress goes to stderr: stdout belongs to callers
     log = (functools.partial(print, file=sys.stderr, flush=True)
            if verbose else (lambda *a, **k: None))
@@ -579,7 +586,6 @@ def build_roargraph(
     log(f"build split: medoid {t_med.elapsed:.1f}s A {t_a.elapsed:.1f}s "
         f"BC {t_bc.elapsed:.1f}s D {t_d.elapsed:.1f}s other {t_other:.1f}s")
 
-    from mysteryann_tpu_torch.utils.trace import tracer
     tr = tracer()
     tr.record("build.medoid", t_med.elapsed)
     tr.record("build.phaseA", t_a.elapsed, queries=int(nq))
@@ -750,10 +756,32 @@ def _prune_batch(cfg, dev: torch.device) -> int:
     return max(8, min(cfg.search_batch, budget // (4 * H * (H + 8))))
 
 
+def _scatter_pack_rows(table: torch.Tensor, base: torch.Tensor,
+                       ids: torch.Tensor, supply: torch.Tensor, *,
+                       n_base: int, M: int, d: int, bits: int) -> None:
+    """Repack ONLY the given supply rows into the fused table, in place.
+
+    Byte-identical to a full ``pack_neighbor_table`` for those rows:
+    ``_pack_chunk`` is a pure per-row function of (base, row)."""
+    rows = gather_rows_any(supply, ids)
+    table[ids.long()] = _pack_chunk(base, rows, n_base=n_base, M=M, d=d,
+                                    bits=bits)
+
+
+def _repack_changed(table, base_dev, supply_dev, ids, n, M, d, bits,
+                    blk: int = 32768):
+    """Scatter-repack the changed rows ``ids`` (numpy or tensor, each in
+    [0, n)) in blocks of ``blk``; returns the table, updated in place."""
+    ids = _to_dev(ids, table.device)
+    for s in range(0, ids.shape[0], blk):
+        _scatter_pack_rows(table, base_dev, ids[s: s + blk], supply_dev,
+                           n_base=n, M=M, d=d, bits=bits)
+    return table
+
+
 def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
                        ckpt=None, tag="phaseD", pass_i=0):
-    """Phase D: per-node search + prune + reverse supply edges (classic
-    engine: the f32 lockstep beam over the live supply graph).
+    """Phase D: per-node search + prune + reverse supply edges.
 
     The reference runs this incrementally — every node's search sees the
     supply edges added by nodes processed before it
@@ -761,14 +789,22 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     node set is processed in ``connectivity_iters`` chunks, and after each
     chunk its pruned lists plus arrival-order reverse edges are folded
     into the supply graph the next chunk searches.
+
+    Search engine per ``cfg.connectivity_engine``: "fused" repacks the live
+    supply graph into quantized neighbour-block byte rows each round and
+    traverses with one row gather per expansion (search/fused.py) — the
+    prune recomputes exact f32 distances over the collected history, so
+    the quantization affects traversal order only; "classic" is the f32
+    lockstep beam (no table memory).
     """
     dev = base_dev.device
     n, M = projection.shape[0], cfg.M_pjbp
+    d = base_dev.shape[1]
     L = cfg.L_pjpq
     sb = max(8, min(cfg.search_batch, n))
     eps = torch.tensor([ep], dtype=_I32, device=dev)
     prune_batch = _prune_batch(cfg, dev)
-    t_walk = t_fold = t_ckpt = 0.0
+    t_walk = t_pack = t_fold = t_ckpt = 0.0
 
     rounds = _rounds_for_pass(cfg, pass_i)
     chunk = -(-n // rounds)
@@ -778,9 +814,28 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     pw = projection.shape[1]
     supply = torch.full((n, W), n, dtype=_I32, device=dev)
     supply[:, : min(pw, W)] = projection[:, :W]
-    log(f"phase D engine: {_resolve_engine(cfg, n, base_dev.shape[1])} "
-        f"(expand={cfg.connectivity_expand})")
 
+    engine = _resolve_engine(cfg, n, d)
+    bits = cfg.connectivity_bits
+    dim_mult = 8 if bits == 8 else 16
+    if engine == "fused" and d % dim_mult:
+        raise ValueError(f"connectivity_engine='fused' needs dim % "
+                         f"{dim_mult} == 0 at connectivity_bits={bits} "
+                         f"(got d={d}); pad the vectors or use 'classic'")
+    # entry-point seeding: the node's own vector is the query, so one bf16
+    # sample-scan matmul per batch replaces the medoid navigation prefix
+    seeds = cfg.connectivity_seeds if engine == "fused" else 0
+    samp = (make_seed_sample(base_dev, cfg.connectivity_seed_sample)
+            if seeds else None)
+    log(f"phase D engine: {engine} (expand={cfg.connectivity_expand}"
+        + (f", bits={bits}"
+           + (f", seeds={seeds}/1-in-{cfg.connectivity_seed_sample}"
+              if seeds else "")
+           if engine == "fused" else "") + ")")
+
+    table = None
+    packed_supply = None  # the supply snapshot the current table reflects
+    Mt = None
     H = cfg.history_mult * L  # history ≈ reference full_retset size
     r0 = 0
     for round_i in range(rounds):
@@ -794,22 +849,60 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
             log(f"\rreplayed connectivity round {min(r1, n)}/{n}", end="")
             r0 = r1
             continue
+        if engine == "fused":
+            _t0 = _time.perf_counter()
+            # incremental repack: scatter-repack only the rows that changed
+            # since the snapshot the table was packed from (byte-identical,
+            # _pack_chunk is pure per row); a full repack on the first
+            # round, when more than 40% changed, or when the supply width
+            # is not the table's
+            ids = None
+            if table is not None and W % 16 == 0:
+                ids = torch.nonzero(
+                    torch.any(packed_supply != supply, dim=1))[:, 0]
+            if ids is None or ids.shape[0] > (2 * n) // 5:
+                table, Mt = pack_neighbor_table(base_dev, supply, into=table,
+                                                bits=bits)
+            else:
+                _repack_changed(table, base_dev, supply, ids, n, Mt, d, bits)
+            # a copy: the fold updates supply in place
+            packed_supply = supply.clone()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_pack += _time.perf_counter() - _t0
         chunk_lists = torch.full((chunk, M), n, dtype=_I32, device=dev)
         _t0 = _time.perf_counter()
         for s in range(r0, r1, sb):
             e = min(s + sb, r1)
-            # expand>1 amortizes pool maintenance over several pops per
-            # lockstep step
-            r = beam_search(base_dev, supply, eps, base_dev[s:e],
-                            k=1, L=L, metric=metric,
-                            expand=cfg.connectivity_expand,
-                            visited_mode="pool", collect_expanded=H)
+            if engine == "fused":
+                seed_ids = seed_d = None
+                if seeds:
+                    seed_ids, seed_d = seed_scan(*samp, base_dev[s:e],
+                                                 n_seeds=seeds, metric=metric)
+                r = _fused_beam(table, base_dev, eps, base_dev[s:e], k=1, L=L,
+                                metric=metric, max_hops=4 * L + 32, n_base=n,
+                                M=Mt, d=d, collect_expanded=H,
+                                expand=cfg.connectivity_expand, bits=bits,
+                                seed_ids=seed_ids, seed_d=seed_d)
+                pool = r[4]
+                if s == r0 == 0:  # once per pass: history-cap pressure
+                    hops_r = r[3].float()
+                    log(f"\rround@{r0}: search hops mean "
+                        f"{float(hops_r.mean()):.0f} max "
+                        f"{int(hops_r.max())} (H={H})", end="")
+            else:
+                # expand>1 amortizes pool maintenance over several pops per
+                # lockstep step
+                r = beam_search(base_dev, supply, eps, base_dev[s:e],
+                                k=1, L=L, metric=metric,
+                                expand=cfg.connectivity_expand,
+                                visited_mode="pool", collect_expanded=H)
+                pool = r.hist_ids
             # prune over the FULL expanded set (reference full_retset,
             # :1318) — includes expanded-then-dropped far nodes, whose
             # long-range edges the occlusion rule keeps for navigability.
             # The seed must not be an existing projection neighbour
             # (:1861-1864); two_pass stays off, as in the JAX package
-            pool = r.hist_ids
             ns = _membership(pool, projection[s:e], n)
             chunk_lists[s - r0: e - r0] = _batched_prune_rows(
                 base_dev, torch.arange(s, e, dtype=_I32, device=dev), pool,
@@ -828,11 +921,17 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
             torch.cuda.synchronize(dev)
         t_fold += _time.perf_counter() - _t0
         log(f"\rround {round_i}: cumulative walk {t_walk:.0f}s "
-            f"fold {t_fold:.0f}s ckpt {t_ckpt:.0f}s", end="")
+            f"pack {t_pack:.0f}s fold {t_fold:.0f}s "
+            f"ckpt {t_ckpt:.0f}s", end="")
         r0 = r1
     log("")
+    del table, packed_supply
     log(f"phase D split: walk (search+prune) {t_walk:.1f}s "
-        f"fold {t_fold:.1f}s ckpt {t_ckpt:.1f}s")
+        f"pack {t_pack:.1f}s fold {t_fold:.1f}s ckpt {t_ckpt:.1f}s")
+    tr = tracer()
+    tr.record("build.phaseD.walk", t_walk)
+    tr.record("build.phaseD.pack", t_pack)
+    tr.record("build.phaseD.fold", t_fold)
 
     # overflow re-prune: any row > M goes back through the occlusion prune
     # (reference :1224-1248, no fill); projection members can't seed

@@ -10,14 +10,14 @@ holds the vector data pointers. Here the metric dispatch lives in
 exactly the reference's convention), and the surface splits in two —
 index DATA (host/device tensors + save/load) is separate from the SEARCH
 engine bound to it. Port of ``mysteryann_tpu/index.py``. Registered:
-``roargraph`` and ``flat``; the kinds not yet ported (bipartite, ivf,
-fused serving) are not registered here:
+``roargraph`` and ``flat``; the kinds not yet ported (bipartite, ivf)
+are not registered here:
 
 | reference                  | here                                      |
 |----------------------------|-------------------------------------------|
 | IndexBipartite::BuildRoarGraph | graph.build_roargraph → RoarGraphIndex |
 | Save/LoadProjectionGraph   | RoarGraphIndex.save/.load                 |
-| SearchRoarGraph            | search.Searcher                           |
+| SearchRoarGraph            | search.Searcher / search.FusedSearcher    |
 | (no counterpart)           | flat.FlatIndex (exact scan serving)       |
 
 This module's registry maps a string kind → container class, used by

@@ -96,6 +96,14 @@ def _bit_of(ids: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_left_shift(torch.ones_like(ids), ids & 31)
 
 
+def _first_occurrence(x: torch.Tensor) -> torch.Tensor:
+    """bool [B, F]: x[b, j] is the first entry of its value in row b."""
+    sv, si = torch.sort(x, dim=1, stable=True)
+    dup = torch.zeros_like(x, dtype=torch.bool)
+    dup[:, 1:] = sv[:, 1:] == sv[:, :-1]
+    return torch.zeros_like(dup).scatter_(1, si, ~dup)
+
+
 def beam_search(
     base: torch.Tensor,            # f32 [N, d] (metric-preprocessed)
     neighbors: torch.Tensor,       # int32 [N, M_pad], sentinel >= N
@@ -214,11 +222,7 @@ def beam_search(
                                  dim=2)
             # intra-slice duplicates reduce to one representative: they
             # would corrupt the sum-as-OR trick and insert twice
-            sv, si = torch.sort(nbrs, dim=1, stable=True)
-            dup_sorted = torch.zeros_like(in_base)
-            dup_sorted[:, 1:] = sv[:, 1:] == sv[:, :-1]
-            first_occ = torch.zeros_like(in_base).scatter_(1, si, ~dup_sorted)
-            fresh = in_base & ~seen & first_occ                     # [B, F]
+            fresh = in_base & ~seen & _first_occurrence(nbrs)        # [B, F]
             if use_bitmask:
                 _scatter_or_bits(visited, words, bits, fresh)
 

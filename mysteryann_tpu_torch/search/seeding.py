@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 
 from mysteryann_tpu_torch.ops.distances import Metric
-from mysteryann_tpu_torch.ops.sort import topk_smallest
+from mysteryann_tpu_torch.ops.knn import _tiled_topk
 
 
 def make_seed_sample(base_dev: torch.Tensor, rate: int
@@ -37,19 +37,26 @@ def seed_scan(samp, samp_sq, samp_ids, q, n_seeds: int, metric: Metric):
     sample) and accumulates their products in float32, which is what the
     JAX package's bf16 matmul with a float32 result computes. Selection is
     exact (the JAX package's ``approx_min_k`` is exact on its CPU backend),
-    ties going to the lower sample index.
+    ties going to the lower sample index. The sample is scanned in tiles
+    with a running top-k (``ops.knn._tiled_topk``), so the [B, S] score
+    block is never whole — a 1-in-2 sample of 1M rows would make it 16 GB
+    at 8,192 queries; the result does not depend on the tile.
     """
     metric = Metric.parse(metric)
-    ip = q.to(torch.bfloat16).float() @ samp.float().t()
-    if metric in (Metric.IP, Metric.COSINE):
-        dist = -ip
-    else:
+    qb = q.to(torch.bfloat16).float()
+    q_sq = (torch.sum(q * q, dim=1, keepdim=True)
+            if metric == Metric.L2 else None)
+
+    def score_tile(t0, t1):
+        ip = qb @ samp[t0:t1].float().t()
+        if q_sq is None:
+            return -ip
         # clamp: the bf16 ip can push ||q-s||² ulp-negative for a query
         # equal to a sampled point
-        dist = torch.clamp(
-            torch.sum(q * q, dim=1, keepdim=True) - 2.0 * ip + samp_sq,
-            min=0.0)
-    vals, idx = topk_smallest(dist, n_seeds)
+        return torch.clamp(q_sq - 2.0 * ip + samp_sq[t0:t1], min=0.0)
+
+    vals, idx = _tiled_topk(score_tile, q.shape[0], samp.shape[0], n_seeds,
+                            samp.shape[0], q.device)
     # vals carry bf16 rounding of the inputs; the classic Searcher passes
     # seed_d=None so beam_search rescores the seeds in f32
-    return samp_ids[idx], vals
+    return samp_ids[idx.long()], vals

@@ -38,9 +38,8 @@ class BuildConfig:
     # phase-D search engine: "fused" packs the live supply graph into
     # int8 neighbor-block byte rows each round; "classic" traverses f32
     # vectors directly (no table memory). "auto" picks fused when the
-    # packed table fits the device-memory budget. The port runs
-    # "classic" only: "fused" (and "auto" resolving to it) raises
-    # NotImplementedError until the fused engine is ported.
+    # packed table fits the JAX package's 10 GB table budget (the same
+    # rule in both packages).
     connectivity_engine: str = "auto"
     # phase-D throughput knobs:
     # - connectivity_expand: closest-unexpanded pops per traversal step

@@ -10,12 +10,27 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from mysteryann_tpu import io as jio
+from mysteryann_tpu.cli import build_roargraph as j_build_roargraph
 from mysteryann_tpu.cli import compute_gt as j_compute_gt
+from mysteryann_tpu.cli import search_roargraph as j_search_roargraph
+from mysteryann_tpu.ops import exact_knn as j_knn
 from mysteryann_tpu_torch import io as tio
 from mysteryann_tpu_torch.cli import (build_roargraph, compute_gt,
                                       search_flat, search_roargraph)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test processes run side by side (pytest-xdist); torch's own thread
+    pool on top of them oversubscribes the cores, and its parallel ops then
+    wait on each other. These tests run torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -153,17 +168,77 @@ def test_search_roargraph_seeded(data_dir, capsys):
     assert float(rows[-1].split()[4]) > 0.7
 
 
-@pytest.mark.parametrize("flags", [["--engine", "fused"], ["--bits", "4"]])
-def test_search_roargraph_fused_not_ported(data_dir, capsys, flags):
-    with pytest.raises(SystemExit) as e:
-        search_roargraph.main([
-            "--base_data_path", str(data_dir / "base.fbin"),
+def _search_argv(data_dir, *flags):
+    return ["--base_data_path", str(data_dir / "base.fbin"),
             "--projection_index_save_path", str(data_dir / "proj.index"),
             "--query_path", str(data_dir / "eval.fbin"),
-            "--gt_path", str(data_dir / "gt.bin"), *flags,
-        ])
-    assert e.value.code == 2
-    assert "Queue 1 item a" in capsys.readouterr().err
+            "--gt_path", str(data_dir / "gt.bin"), "--k", "10",
+            "--query_batch", "100", *flags]
+
+
+def _rows(out: str):
+    return [ln.split() for ln in out.strip().splitlines()
+            if ln.lstrip()[:2].isdigit()]
+
+
+@pytest.mark.parametrize("flags", [["--engine", "fused"], ["--bits", "4"]])
+def test_search_roargraph_fused_not_ported(data_dir, capsys, flags):
+    """Both flags behave as in the JAX package's CLI (the port once refused
+    them): ``--engine fused`` searches, and ``--bits 4`` with the classic
+    engine exits 2 with the JAX CLI's message."""
+    argv = _search_argv(data_dir, "--L_pq", "32", *flags)
+    if flags[0] == "--engine":
+        assert search_roargraph.main(argv) == 0
+        rows = _rows(capsys.readouterr().out)
+        assert len(rows) == 1 and float(rows[0][4]) > 0.7
+        return
+    for cli in (search_roargraph, j_search_roargraph):
+        with pytest.raises(SystemExit) as e:
+            cli.main(argv)
+        assert e.value.code == 2
+        assert "--bits applies to --engine fused only" in \
+            capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bits", ["8", "4"])
+def test_search_roargraph_fused_seeded_matches_jax(data_dir, capsys, bits):
+    """Seeded fused search through both packages' CLIs on the same index:
+    recall@10 within 0.01 (float sums in another order may move a
+    traversal tie)."""
+    argv = _search_argv(data_dir, "--engine", "fused", "--bits", bits,
+                        "--seeds", "16", "--seed_sample", "4", "--expand",
+                        "2", "--L_pq", "48")
+    assert search_roargraph.main(argv) == 0
+    t_rows = _rows(capsys.readouterr().out)
+    assert j_search_roargraph.main(argv) == 0
+    j_rows = _rows(capsys.readouterr().out)
+    assert len(t_rows) == len(j_rows) == 1
+    t_rec, j_rec = float(t_rows[0][4]), float(j_rows[0][4])
+    assert t_rec > 0.8 and abs(t_rec - j_rec) <= 0.01, (t_rec, j_rec)
+
+
+def test_build_roargraph_cli_default_engine_matches_jax(tmp_path):
+    """With no engine flag both build CLIs resolve "auto" alike (fused at
+    this size) and, on dyadic data, save the same index bytes."""
+    rng = np.random.default_rng(6)
+    base = (rng.integers(-64, 65, size=(1200, 24)) / 64).astype(np.float32)
+    train = (rng.integers(-64, 65, size=(500, 24)) / 64).astype(np.float32)
+    _, knn = j_knn(train, base, k=16, metric="ip", precision="highest")
+    tio.write_fbin(str(tmp_path / "base.fbin"), base)
+    tio.write_fbin(str(tmp_path / "train.fbin"), train)
+    tio.write_knn_ibin(str(tmp_path / "knn.ibin"), knn.astype(np.uint32))
+    for name, cli in (("port", build_roargraph), ("jax", j_build_roargraph)):
+        assert cli.main([
+            "--base_data_path", str(tmp_path / "base.fbin"),
+            "--sampled_query_data_path", str(tmp_path / "train.fbin"),
+            "--learn_base_nn_path", str(tmp_path / "knn.ibin"),
+            "--projection_index_save_path", str(tmp_path / f"{name}.index"),
+            "--M_sq", "16", "--M_pjbp", "8", "--L_pjpq", "32",
+            "--dist", "ip", "--query_batch", "256", "--search_batch", "256",
+        ]) == 0
+    for suffix in ("", ".meta.json"):
+        assert _bytes(tmp_path / f"port.index{suffix}") == \
+            _bytes(tmp_path / f"jax.index{suffix}"), suffix
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])

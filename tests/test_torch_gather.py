@@ -118,3 +118,20 @@ def test_kernel_matches_index_select(cuda_device, shape, dtype):
     assert tg.launches == before + 1
     assert torch.equal(got, tg.gather_rows_ref(table, idx))
     assert tg.error_flag_value() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes", [6528, 4608, 1000])
+def test_kernel_fused_byte_rows(cuda_device, row_bytes):
+    """The fused engine's uint8 byte rows (16-byte words when the width
+    allows, bytes otherwise): bit for bit against index_select."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    table = torch.randint(0, 256, (20_001, row_bytes), generator=g,
+                          device=cuda_device, dtype=torch.uint8)
+    idx = torch.randint(0, table.shape[0], (8192,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    got = tg.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tg.gather_rows_ref(table, idx))
+    assert tg.error_flag_value() == 0

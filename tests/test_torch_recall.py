@@ -7,6 +7,8 @@ quality of the graph.
 """
 
 import numpy as np
+import pytest
+import torch
 
 from mysteryann_tpu.graph import build_roargraph as j_build
 from mysteryann_tpu.io import make_cross_modal
@@ -15,6 +17,17 @@ from mysteryann_tpu.search import Searcher as JSearcher
 from mysteryann_tpu.utils.metrics import compute_recall
 from mysteryann_tpu.utils.params import BuildConfig as JConfig
 import mysteryann_tpu_torch as port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Test processes run side by side (pytest-xdist); torch's own thread
+    pool on top of them oversubscribes the cores, and its parallel ops then
+    wait on each other. These tests run torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_recall_within_001_of_jax():
