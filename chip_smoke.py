@@ -15,16 +15,20 @@ Phases, one line each before the last:
      median times of both; then kernel_fused_rows: the same at the fused
      engine's byte rows (uint8 [1M+1, 6528] serving, [1M+1, 4608] build);
   4. kernel_scan: the scan kernel against binned_scan_ref on the card —
-     bit for bit on dyadic data at 8,192 queries x 1M x 128, within 1e-5
-     relative on Gaussian data, bit for bit at odd corpus sizes; median
-     times of both;
+     bit for bit on dyadic data at 8,192 queries x 1M x 128 and at
+     8,192 x 100k x 256, within scan.KERNEL_RTOL relative on Gaussian data
+     (the measured error printed), bit for bit at odd corpus sizes; median
+     times of the kernel, its plain version and a tiled bf16 torch.matmul
+     of the same operands (the product alone, a yardstick); its bound and
+     share;
   5. main path on the bench's synthetic T2I world: exact kNN (train kNN and
      ground truth), build_roargraph (classic engine), save/load,
      Searcher.search at L = 64, 100, 200; checks on the graph, on recall and
      that the path went through the gather kernel;
   6. flat: FlatIndex in f32, bf16, int8 and scan precision on the same base,
      eval queries and ground truth; recall floors, and that bf16 / int8 /
-     scan went through K1 and scan through K2;
+     scan went through K1 and scan through K2; a torch.profiler split of
+     one scan batch (K2, bin top-k, rerank);
   7. fused_build: build_roargraph with the bench's recipe (2 phase-D
      passes, expand 4, int4 rows, engine "auto", which resolves to fused);
      the same graph checks, the phase-D split (walk, pack, fold), peak GiB;
@@ -67,7 +71,9 @@ KERNEL_SOURCE = "mysteryann_tpu_torch/csrc/gather.cu"
 KERNEL_REPLACES = "mysteryann_tpu/ops/gather.py:52"
 SCAN_SOURCE = "mysteryann_tpu_torch/csrc/scan.cu"
 SCAN_REPLACES = "mysteryann_tpu/ops/scan.py:68"
-SCAN_RTOL = 1e-5        # Gaussian data: f32 sums in another order
+# H100 SXM peaks (NVIDIA's data sheet, 700 W) for the kernels' bounds
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
 # recall@10 floors of FlatIndex per precision: f32 is exact; bf16 and int8
 # rerank a k·2 head; scan loses bin collisions (the JAX package's own
 # test floor for it, tests/test_scan.py)
@@ -169,8 +175,10 @@ def kernel_checks(gather, dev) -> dict:
         if name in ("f32", "i32"):
             timings[name] = {
                 "kernel_ms": time_ms(lambda: gather.gather_rows(table, idx)),
-                "index_select_ms": time_ms(
+                "plain_ms": time_ms(
                     lambda: gather.gather_rows_ref(table, idx)),
+                "index_select_ms": time_ms(
+                    lambda: torch.index_select(table, 0, idx)),
                 "rows": n_idx, "row_bytes": shape[1] * table.element_size()}
     phase("kernel", bit_identical=True, cases=[c[0] for c in cases],
           timings=timings)
@@ -187,8 +195,12 @@ def kernel_checks(gather, dev) -> dict:
     gather.reset_error_flag()
     check(gather.error_flag_value() == 0, "error flag did not reset")
     phase("kernel_flag", out_of_range_flagged=True, reset=True)
-    return {"max_abs_err": max_err, "ms": timings["f32"]["kernel_ms"],
-            "plain_ms": timings["f32"]["index_select_ms"]}
+    f32 = timings["f32"]
+    # each gathered row read once and written once, the indices read once
+    moved = 2 * f32["rows"] * f32["row_bytes"] + 4 * f32["rows"]
+    return {"max_abs_err": max_err, "ms": f32["kernel_ms"],
+            "plain_ms": f32["plain_ms"], "library_ms": f32["index_select_ms"],
+            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
 
 
 def kernel_fused_rows(gather, dev, n_rows: int = 1_000_001,
@@ -343,7 +355,8 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
             "train_q": train_q, "knn": knn}
 
 
-def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
+def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192,
+                n_wide: int = 100_000) -> dict:
     """Phase 4: the scan kernel against its plain version on the card."""
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -365,11 +378,31 @@ def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
           f"scan kernel: shape/dtype {tuple(kd.shape)} {kj.dtype}")
     check(torch.equal(kd, rd) and torch.equal(kj, rj),
           "scan kernel (dyadic, path shape) differs from binned_scan_ref")
-    # (d) times at (a)'s shape; the plain version runs 512-query blocks
+    del kd, kj, rd, rj
+    # (d) times at (a)'s shape; the plain version runs 512-query blocks;
+    # the yardstick is the bf16 product alone, 65,536 table rows per call
+    # into one reused bf16 output (no fold)
     t_kernel = time_ms(lambda: scan.binned_scan(q, tbl, n), reps=3, trials=5)
     t_plain = time_ms(lambda: scan.binned_scan_ref(q, tbl, n), reps=1,
                       trials=5)
-    del tbl, kd, kj, rd, rj
+    tile = 65536
+    prod = torch.empty(n_q * tile, dtype=torch.bfloat16, device=dev)
+
+    def product():
+        for s in range(0, tbl.shape[0], tile):
+            t = tbl[s:s + tile]
+            torch.matmul(q, t.T, out=prod[:n_q * t.shape[0]].view(
+                n_q, t.shape[0]))
+
+    t_library = time_ms(product, reps=3, trials=5)
+    del tbl, prod
+    # the least time for the same work: the products of the n real rows on
+    # the tensor cores, or q, the table and both outputs through HBM once
+    flops = 2.0 * n_q * n * DIM
+    moved = 2 * n_q * DIM + 2 * n * DIM + 6 * n_q * scan.BINS
+    bound_ms = max(flops / BF16_FLOP_S, moved / HBM_BYTES_S) * 1e3
+    bound_by = ("operations" if flops / BF16_FLOP_S >= moved / HBM_BYTES_S
+                else "bytes")
 
     # (b) Gaussian at the path's shape
     qg = torch.randn((n_q, DIM), generator=g, device=dev)
@@ -378,10 +411,10 @@ def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
     err = (kd - rd).abs()
     rel = float((err / rd.abs()).max())
     j_diff = float((kj != rj).float().mean())
-    check(rel <= SCAN_RTOL, f"scan kernel (Gaussian): max relative error "
-                            f"{rel} > {SCAN_RTOL}")
+    check(rel <= scan.KERNEL_RTOL, f"scan kernel (Gaussian): max relative "
+                                   f"error {rel} > {scan.KERNEL_RTOL}")
     max_err = float(err.max())
-    del tg, kd, kj, rd, rj, err
+    del qg, tg, kd, kj, rd, rj, err
 
     # (c) odd corpus sizes: n = BINS; tail masks and unwritten bins
     odd = [scan.BINS, 3 * 512 + 17, 9 * 512 + 5]
@@ -390,11 +423,61 @@ def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192) -> dict:
             dyadic((nn, DIM))), nn)
         check(torch.equal(kd, rd) and torch.equal(kj, rj),
               f"scan kernel differs from binned_scan_ref at n={nn}")
+    # (e) d = 2·DIM: twice the resident query tile and table chunks
+    qw = dyadic((n_q, 2 * DIM)).to(torch.bfloat16)
+    (kd, kj), (rd, rj) = run_both(qw, scan.make_scan_table(
+        dyadic((n_wide, 2 * DIM))), n_wide)
+    check(torch.equal(kd, rd) and torch.equal(kj, rj),
+          f"scan kernel (dyadic, {n_q} x {n_wide} x {2 * DIM}) differs "
+          f"from binned_scan_ref")
+    del qw, kd, kj, rd, rj
+    torch.cuda.empty_cache()
     phase("kernel_scan", dyadic_bit_identical=True, shape=[n_q, n, DIM],
-          gaussian_max_rel_err=rel, gaussian_max_abs_err=max_err,
-          gaussian_j_differ_share=j_diff, odd_n_bit_identical=odd,
-          kernel_ms=t_kernel, plain_ms=t_plain)
-    return {"max_abs_err": max_err, "ms": t_kernel, "plain_ms": t_plain}
+          wide_bit_identical=[n_q, n_wide, 2 * DIM],
+          gaussian_max_rel_err=rel, gaussian_rtol=scan.KERNEL_RTOL,
+          gaussian_max_abs_err=max_err, gaussian_j_differ_share=j_diff,
+          odd_n_bit_identical=odd, kernel_ms=t_kernel, plain_ms=t_plain,
+          library_ms=t_library, bound_ms=bound_ms, bound_by=bound_by,
+          roofline_share=bound_ms / t_kernel,
+          kernel_tflop_s=flops / t_kernel / 1e9)
+    return {"max_abs_err": max_err, "ms": t_kernel, "plain_ms": t_plain,
+            "library_ms": t_library, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def scan_batch_split(idx, q: torch.Tensor) -> dict:
+    """Device time of one scan-precision FlatIndex batch by stage, from a
+    torch.profiler trace: K2, then the bin top-k and column decode (the
+    kernels up to the first K1 launch), then the rerank (K1 on)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    idx.search(q, K, query_batch=q.shape[0], device_out=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        idx.search(q, K, query_batch=q.shape[0], device_out=True)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    split = {"k2_ms": 0.0, "bin_topk_ms": 0.0, "rerank_ms": 0.0}
+    stage = None
+    for e in kernels:
+        if "binned_scan" in e.name:
+            stage = "k2_ms"
+        elif "gather_rows" in e.name:
+            stage = "rerank_ms"
+        elif stage == "k2_ms":
+            stage = "bin_topk_ms"
+        if stage is not None:
+            split[stage] += e.time_range.elapsed_us() / 1e3
+    split["kernels_seen"] = len(kernels)
+    if not kernels:
+        return split          # the profiler recorded no device activity
+    first, last = kernels[0].time_range.start, kernels[-1].time_range.end
+    split["busy_share"] = (sum(e.time_range.elapsed_us() for e in kernels)
+                           / max(1, last - first))
+    return split
 
 
 def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
@@ -414,6 +497,9 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
         scan.reset_launches()
         r = idx.benchmark(eval_q, k=K, query_batch=query_batch)
         l1, l2 = gather.launches, scan.launches
+        split = (scan_batch_split(idx, port.prepare_vectors(
+            eval_q[:query_batch], METRIC, base_dev.device))
+            if prec == "scan" else None)
         del idx
         torch.cuda.empty_cache()
         check(np.isfinite(r["dists"]).all()
@@ -425,6 +511,8 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
                                            METRIC),
                "build_s": t_build, "k1_launches": l1, "k2_launches": l2,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if split is not None:
+            row["batch_split"] = split
         phase("flat", **row)
         check(row["recall@10"] >= FLAT_FLOORS[prec],
               f"flat {prec}: recall@10 {row['recall@10']:.4f} < "
@@ -627,11 +715,14 @@ def main() -> None:
          "launches": (run["launches"] + flat["k1_launches"]
                       + fused["k1_launches"] + k1_cli),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "binned_scan", "route": "cuda", "source": SCAN_SOURCE,
          "replaces": SCAN_REPLACES, "launches": flat["k2_launches"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]}]}), flush=True)
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,7 +18,7 @@ import argparse
 import time
 
 from mysteryann_tpu_torch.cli.common import (add_common_build_flags,
-                                             default_device, load_vectors)
+                                             device_from, load_vectors)
 from mysteryann_tpu_torch.graph import build_roargraph
 from mysteryann_tpu_torch.io import read_knn_ibin
 from mysteryann_tpu_torch.ops import exact_knn, prepare_vectors
@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     t0 = time.perf_counter()
-    dev = default_device()
+    dev = device_from(p, args)
     base = load_vectors(args.base_data_path)
     train_q = load_vectors(args.sampled_query_data_path)
     print(f"base: {base.shape}, train queries: {train_q.shape}")

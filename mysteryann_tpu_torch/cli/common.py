@@ -5,8 +5,9 @@ Flag vocabulary mirrors the reference programs
 tests/test_search_roargraph.cpp:70-120) so shell scripts written for the
 reference port with a rename. ``--num_threads`` is accepted for
 compatibility and unused: device parallelism comes from batching, not host
-threads. The CLIs run on the first CUDA device when there is one, else
-on the CPU (``CUDA_VISIBLE_DEVICES`` picks the card).
+threads. The CLIs run on the first CUDA device (``CUDA_VISIBLE_DEVICES``
+picks the card) and exit with a message when there is none; ``--device
+cpu`` runs them on the CPU, as ``JAX_PLATFORMS=cpu`` does the JAX CLIs.
 
 Run one as ``python -m mysteryann_tpu_torch.cli.<name> ...``.
 """
@@ -23,8 +24,19 @@ import torch
 from mysteryann_tpu_torch.io import read_fbin
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; "
+                        "'cpu' runs on the CPU)")
+
+
+def device_from(p: argparse.ArgumentParser, args) -> torch.device:
+    """The ``--device`` of the parsed ``args``; exits through ``p.error``
+    when it names the card and there is none."""
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        p.error("no CUDA device: pass --device cpu to run on the CPU")
+    return dev
 
 
 def add_common_build_flags(p: argparse.ArgumentParser) -> None:
@@ -43,6 +55,7 @@ def add_common_build_flags(p: argparse.ArgumentParser) -> None:
                    help="accepted for reference compatibility; unused")
     p.add_argument("--query_batch", type=int, default=4096)
     p.add_argument("--search_batch", type=int, default=1024)
+    add_device_flag(p)
 
 
 def add_common_search_flags(p: argparse.ArgumentParser) -> None:
@@ -59,6 +72,7 @@ def add_common_search_flags(p: argparse.ArgumentParser) -> None:
                    help="accepted for reference compatibility; unused")
     p.add_argument("--query_batch", type=int, default=1024)
     p.add_argument("--csv_path", default="", help="append result rows as CSV")
+    add_device_flag(p)
 
 
 def load_vectors(path: str) -> np.ndarray:

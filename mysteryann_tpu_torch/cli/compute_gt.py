@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import argparse
 
-from mysteryann_tpu_torch.cli.common import default_device, load_vectors
+from mysteryann_tpu_torch.cli.common import (add_device_flag, device_from,
+                                             load_vectors)
 from mysteryann_tpu_torch.io import write_gt_with_dist, write_knn_ibin
 from mysteryann_tpu_torch.ops import compute_ground_truth
 
@@ -30,14 +31,16 @@ def main(argv=None) -> int:
     p.add_argument("--format", default="knn", choices=["knn", "gt"],
                    help="knn = ids-only .ibin (build input); gt = ids+dists")
     p.add_argument("--query_batch", type=int, default=4096)
+    add_device_flag(p)
     args = p.parse_args(argv)
+    dev = device_from(p, args)
 
     base = load_vectors(args.base_data_path)
     queries = load_vectors(args.query_path)
     ids, dists = compute_ground_truth(queries, base, k=args.k,
                                       metric=args.dist,
                                       query_batch=args.query_batch,
-                                      device=default_device())
+                                      device=dev)
     if args.format == "knn":
         write_knn_ibin(args.out_path, ids)
     else:

@@ -15,7 +15,7 @@ import argparse
 
 from mysteryann_tpu_torch.cli.common import (
     add_common_search_flags,
-    default_device,
+    device_from,
     load_vectors,
     result_header,
     result_row,
@@ -37,13 +37,14 @@ def main(argv=None) -> int:
                         "int8 scan (global scale for ip/cosine) + exact f32 "
                         "rerank. Both keep the f32 base resident too")
     args = p.parse_args(argv)
+    dev = device_from(p, args)
 
     base = load_vectors(args.base_data_path)
     queries = load_vectors(args.query_path)
     gt_ids, gt_dists = read_gt_with_dist(args.gt_path)
     idx = FlatIndex(base, metric=args.dist or "ip", tile=args.tile,
                     oversample=args.oversample, precision=args.precision,
-                    device=default_device())
+                    device=dev)
     r = idx.benchmark(queries, k=args.k, query_batch=args.query_batch)
     row = {
         "L_pq": 0,

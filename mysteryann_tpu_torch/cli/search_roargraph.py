@@ -16,7 +16,7 @@ import argparse
 
 from mysteryann_tpu_torch.cli.common import (
     add_common_search_flags,
-    default_device,
+    device_from,
     load_vectors,
     result_header,
     result_row,
@@ -52,6 +52,7 @@ def main(argv=None) -> int:
                         "per-expansion row bytes (reported distances stay "
                         "exact f32 via the rerank)")
     args = p.parse_args(argv)
+    dev = device_from(p, args)
 
     base = load_vectors(args.base_data_path)
     queries = load_vectors(args.query_path)
@@ -66,12 +67,12 @@ def main(argv=None) -> int:
     ss = args.seed_sample or (8 if args.seeds else 0)
     if args.engine == "fused":
         searcher = FusedSearcher(index, base, seed_sample=ss, bits=args.bits,
-                                 device=default_device())
+                                 device=dev)
     else:
         if args.bits != 8:
             p.error("--bits applies to --engine fused only")
         searcher = Searcher(index, base, seed_sample=ss,
-                            device=default_device())
+                            device=dev)
     print(f"base {base.shape}, queries {queries.shape}, "
           f"graph degree avg {index.graph.degree_stats()['avg']:.1f}, "
           f"metric {index.metric.value}")

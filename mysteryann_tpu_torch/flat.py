@@ -71,8 +71,9 @@ class FlatIndex:
                  int8_scale: str = "auto",
                  device: torch.device | str | None = None):
         """``base`` is a numpy array or a tensor; everything lives on
-        ``device`` (default: ``base``'s device for a tensor, else the CPU).
-        ``recall_target`` is kept for call-site parity: selection is exact.
+        ``device`` (default: ``base``'s device for a tensor, else the card;
+        ``device="cpu"`` runs on the CPU). ``recall_target`` is kept for
+        call-site parity: selection is exact.
         """
         if precision not in ("f32", "bf16", "int8", "scan"):
             raise ValueError(f"unknown precision {precision!r}")

@@ -447,7 +447,8 @@ def build_roargraph(
     device: torch.device | str | None = None,
 ) -> RoarGraphIndex:
     """Build the RoarGraph projection index on ``device`` (default:
-    ``base``'s device for a tensor, else the CPU).
+    ``base``'s device for a tensor, else the card; ``device="cpu"`` runs on
+    the CPU).
 
     `learn_base_knn` is the exact train-query→base kNN ([Nq, K] ids,
     K ≥ cfg.M_sq) — produce it with `ops.knn.exact_knn`.

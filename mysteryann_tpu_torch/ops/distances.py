@@ -122,20 +122,33 @@ def point_dist(
     return torch.clamp(diff_sq, min=0.0)
 
 
+def array_device(device: torch.device | str | None = None) -> torch.device:
+    """Where an array (not a tensor) goes: ``device`` when given, else the
+    first CUDA device. The port runs on the card unless the caller asks
+    for the CPU, so without a card this raises instead of falling back."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
+
+
 def prepare_vectors(x, metric: Metric | str,
                     device: torch.device | str | None = None) -> torch.Tensor:
     """Apply the metric's one-time preprocessing (cosine → normalize) and
     place the rows as float32 on ``device`` (default: ``x``'s own device
-    for a tensor, the CPU for an array)."""
+    for a tensor, the card for an array — see `array_device`)."""
     metric = Metric.parse(metric)
     if isinstance(x, torch.Tensor):
         x = x.to(device=device if device is not None else x.device,
                  dtype=torch.float32)
     else:
+        dev = array_device(device)
         x = np.ascontiguousarray(x, dtype=np.float32)
         if not x.flags.writeable:   # torch.from_numpy wants writable memory
             x = x.copy()
-        x = torch.from_numpy(x).to(device if device is not None else "cpu")
+        x = torch.from_numpy(x).to(dev)
     if metric == Metric.COSINE:
         x = normalize_rows(x)
     return x.contiguous()

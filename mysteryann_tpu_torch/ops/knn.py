@@ -117,7 +117,8 @@ def exact_knn(
     device: torch.device | str | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-level exact kNN: streams query batches through ``device``
-    (default: ``base``'s device for a tensor, else the CPU).
+    (default: ``base``'s device for a tensor, else the card;
+    ``device="cpu"`` runs on the CPU).
 
     Returns (dists [Q,k] f32, ids [Q,k] i32) as numpy. Handles metric
     preprocessing (cosine normalization) on the device.

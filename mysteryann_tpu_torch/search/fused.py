@@ -40,7 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F_
 
-from mysteryann_tpu_torch.ops.distances import Metric, prepare_vectors
+from mysteryann_tpu_torch.ops.distances import (Metric, array_device,
+                                                prepare_vectors)
 from mysteryann_tpu_torch.ops.gather import gather_rows, gather_rows_any
 from mysteryann_tpu_torch.ops.sort import sort_multi
 from mysteryann_tpu_torch.search.beam import (CHECK_EVERY, _INF, _bit_of,
@@ -429,9 +430,12 @@ def pack_neighbor_table(base: torch.Tensor, neighbors, chunk: int = 16384,
 
 
 def fused_table_from_jax(table_np: np.ndarray, n: int, M: int, d: int,
-                         bits: int = 8) -> torch.Tensor:
+                         bits: int = 8,
+                         device: torch.device | str | None = None
+                         ) -> torch.Tensor:
     """The JAX package's table ``[n+1, R_pad/128, 128]`` (as numpy) as this
-    package's ``uint8 [n+1, R]``: the TPU row padding is stripped."""
+    package's ``uint8 [n+1, R]`` on ``device`` (default: the card): the TPU
+    row padding is stripped."""
     t = np.asarray(table_np, np.uint8)
     if t.shape[0] != n + 1:
         raise ValueError(f"table has {t.shape[0]} rows, want n+1={n + 1}")
@@ -439,7 +443,8 @@ def fused_table_from_jax(table_np: np.ndarray, n: int, M: int, d: int,
     flat = t.reshape(n + 1, -1)
     if flat.shape[1] < R:
         raise ValueError(f"table rows hold {flat.shape[1]} B < {R} B")
-    return torch.from_numpy(np.ascontiguousarray(flat[:, :R]))
+    return torch.from_numpy(np.ascontiguousarray(flat[:, :R])).to(
+        array_device(device))
 
 
 class FusedSearcher:
@@ -449,7 +454,8 @@ class FusedSearcher:
                  max_degree: int = 0, seed_sample: int = 0, bits: int = 8,
                  device: torch.device | str | None = None):
         """``base`` is a numpy array or a tensor; everything lives on
-        ``device`` (default: ``base``'s device for a tensor, else the CPU).
+        ``device`` (default: ``base``'s device for a tensor, else the card;
+        ``device="cpu"`` runs on the CPU).
         ``max_degree`` keeps the first (closest) neighbours of each node.
         ``seed_sample=r`` keeps a strided 1-in-r bf16 sample of the base
         for per-query entry-point scans (``search(seeds=...)``).

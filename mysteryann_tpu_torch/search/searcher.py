@@ -29,7 +29,8 @@ class Searcher:
                  seed_sample: int = 0,
                  device: torch.device | str | None = None):
         """``base`` is a numpy array or a tensor; everything lives on
-        ``device`` (default: ``base``'s device for a tensor, else the CPU).
+        ``device`` (default: ``base``'s device for a tensor, else the card;
+        ``device="cpu"`` runs on the CPU).
         ``seed_sample=r`` keeps a strided 1-in-r bf16 base sample for
         per-query entry-point scans (`search(seeds=S)`)."""
         self.metric = index.metric

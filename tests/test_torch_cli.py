@@ -1,6 +1,7 @@
 """Port CLIs and file formats, end to end through their main()
-entries, mirroring tests/test_cli.py at its sizes. The CLIs take the
-card when there is one, so here they run on the CPU.
+entries, mirroring tests/test_cli.py at its sizes. The port's CLIs take
+the card unless given ``--device cpu``, so here every call passes it
+(``CPU``); the JAX CLIs run on the CPU through ``JAX_PLATFORMS=cpu``.
 
 Files the port writes are read back by the JAX package's readers; written
 from the same arrays they are byte-identical to the JAX package's.
@@ -20,6 +21,8 @@ from mysteryann_tpu.ops import exact_knn as j_knn
 from mysteryann_tpu_torch import io as tio
 from mysteryann_tpu_torch.cli import (build_roargraph, compute_gt,
                                       search_flat, search_roargraph)
+
+CPU = ["--device", "cpu"]   # the port's counterpart of JAX_PLATFORMS=cpu
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,7 +98,7 @@ def test_compute_gt_cli(data_dir):
         "--base_data_path", str(data_dir / "base.fbin"),
         "--query_path", str(data_dir / "train.fbin"),
         "--k", "16", "--dist", "ip", "--format", "knn",
-        "--out_path", str(data_dir / "train_base.ibin"),
+        "--out_path", str(data_dir / "train_base.ibin"), *CPU,
     ])
     assert rc == 0
     knn = jio.read_knn_ibin(str(data_dir / "train_base.ibin"), expected_k=16)
@@ -104,7 +107,7 @@ def test_compute_gt_cli(data_dir):
         "--base_data_path", str(data_dir / "base.fbin"),
         "--query_path", str(data_dir / "eval.fbin"),
         "--k", "10", "--dist", "ip", "--format", "gt",
-        "--out_path", str(data_dir / "gt.bin"),
+        "--out_path", str(data_dir / "gt.bin"), *CPU,
     ])
     assert rc == 0
     ids, dists = jio.read_gt_with_dist(str(data_dir / "gt.bin"))
@@ -131,6 +134,7 @@ def test_build_and_search_roargraph_cli(data_dir, capsys):
         "--projection_index_save_path", str(data_dir / "proj.index"),
         "--M_sq", "16", "--M_pjbp", "8", "--L_pjpq", "32",
         "--dist", "ip", "--query_batch", "256", "--search_batch", "256",
+        *CPU,
     ])
     assert rc == 0
     assert os.path.exists(str(data_dir / "proj.index.meta.json"))
@@ -141,7 +145,7 @@ def test_build_and_search_roargraph_cli(data_dir, capsys):
         "--gt_path", str(data_dir / "gt.bin"),
         "--k", "10", "--L_pq", "32", "64",
         "--query_batch", "100", "--expand", "2",
-        "--csv_path", str(data_dir / "out.csv"),
+        "--csv_path", str(data_dir / "out.csv"), *CPU,
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -159,7 +163,7 @@ def test_search_roargraph_seeded(data_dir, capsys):
         "--query_path", str(data_dir / "eval.fbin"),
         "--gt_path", str(data_dir / "gt.bin"),
         "--k", "10", "--L_pq", "8", "64", "--query_batch", "100",
-        "--seeds", "8", "--seed_sample", "4",
+        "--seeds", "8", "--seed_sample", "4", *CPU,
     ])
     assert rc == 0
     rows = [ln for ln in capsys.readouterr().out.strip().splitlines()
@@ -188,13 +192,13 @@ def test_search_roargraph_fused_not_ported(data_dir, capsys, flags):
     engine exits 2 with the JAX CLI's message."""
     argv = _search_argv(data_dir, "--L_pq", "32", *flags)
     if flags[0] == "--engine":
-        assert search_roargraph.main(argv) == 0
+        assert search_roargraph.main(argv + CPU) == 0
         rows = _rows(capsys.readouterr().out)
         assert len(rows) == 1 and float(rows[0][4]) > 0.7
         return
-    for cli in (search_roargraph, j_search_roargraph):
+    for cli, extra in ((search_roargraph, CPU), (j_search_roargraph, [])):
         with pytest.raises(SystemExit) as e:
-            cli.main(argv)
+            cli.main(argv + extra)
         assert e.value.code == 2
         assert "--bits applies to --engine fused only" in \
             capsys.readouterr().err
@@ -208,7 +212,7 @@ def test_search_roargraph_fused_seeded_matches_jax(data_dir, capsys, bits):
     argv = _search_argv(data_dir, "--engine", "fused", "--bits", bits,
                         "--seeds", "16", "--seed_sample", "4", "--expand",
                         "2", "--L_pq", "48")
-    assert search_roargraph.main(argv) == 0
+    assert search_roargraph.main(argv + CPU) == 0
     t_rows = _rows(capsys.readouterr().out)
     assert j_search_roargraph.main(argv) == 0
     j_rows = _rows(capsys.readouterr().out)
@@ -227,7 +231,8 @@ def test_build_roargraph_cli_default_engine_matches_jax(tmp_path):
     tio.write_fbin(str(tmp_path / "base.fbin"), base)
     tio.write_fbin(str(tmp_path / "train.fbin"), train)
     tio.write_knn_ibin(str(tmp_path / "knn.ibin"), knn.astype(np.uint32))
-    for name, cli in (("port", build_roargraph), ("jax", j_build_roargraph)):
+    for name, cli, extra in (("port", build_roargraph, CPU),
+                             ("jax", j_build_roargraph, [])):
         assert cli.main([
             "--base_data_path", str(tmp_path / "base.fbin"),
             "--sampled_query_data_path", str(tmp_path / "train.fbin"),
@@ -235,6 +240,7 @@ def test_build_roargraph_cli_default_engine_matches_jax(tmp_path):
             "--projection_index_save_path", str(tmp_path / f"{name}.index"),
             "--M_sq", "16", "--M_pjbp", "8", "--L_pjpq", "32",
             "--dist", "ip", "--query_batch", "256", "--search_batch", "256",
+            *extra,
         ]) == 0
     for suffix in ("", ".meta.json"):
         assert _bytes(tmp_path / f"port.index{suffix}") == \
@@ -250,10 +256,44 @@ def test_search_flat_cli(data_dir, capsys, precision):
         "--gt_path", str(data_dir / "gt.bin"),
         "--k", "10", "--dist", "ip", "--query_batch", "100",
         "--tile", "512", "--precision", precision,
-        "--csv_path", str(csv_path),
+        "--csv_path", str(csv_path), *CPU,
     ])
     assert rc == 0
     out = capsys.readouterr().out
     recall = float(out.strip().splitlines()[-1].split()[4])
     assert recall > 0.99
     assert len(csv_path.read_text().strip().splitlines()) == 2
+
+
+def _no_card(monkeypatch):
+    """Make this process see no CUDA device, whatever the machine has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (compute_gt, ["--base_data_path", "base.fbin", "--query_path",
+                  "eval.fbin", "--k", "10", "--out_path", "x.bin"]),
+    (search_flat, ["--base_data_path", "base.fbin", "--query_path",
+                   "eval.fbin", "--gt_path", "gt.bin"]),
+])
+def test_cli_without_a_card_exits_with_the_message(data_dir, capsys,
+                                                   monkeypatch, cli, argv):
+    """Without --device the CLIs take the card; with none they exit 2 and
+    say how to run on the CPU, before reading any file."""
+    _no_card(monkeypatch)
+    with pytest.raises(SystemExit) as e:
+        cli.main([str(data_dir / a) if a.endswith((".fbin", ".bin")) else a
+                  for a in argv])
+    assert e.value.code == 2
+    assert "pass --device cpu" in capsys.readouterr().err
+
+
+def test_cli_device_cpu_runs_without_a_card(data_dir, capsys, monkeypatch):
+    _no_card(monkeypatch)
+    assert search_flat.main([
+        "--base_data_path", str(data_dir / "base.fbin"),
+        "--query_path", str(data_dir / "eval.fbin"),
+        "--gt_path", str(data_dir / "gt.bin"), "--k", "10",
+        "--query_batch", "100", "--precision", "f32", *CPU]) == 0
+    assert float(capsys.readouterr().out.strip().splitlines()[-1]
+                 .split()[4]) > 0.99

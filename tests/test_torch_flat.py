@@ -47,7 +47,8 @@ def test_flat_matches_jax(world, precision, metric):
     base, q = world
     want = JFlat(base, metric=metric, tile=1024, precision=precision
                  ).search(q, k=10, query_batch=64)
-    idx = TFlat(base, metric=metric, tile=1024, precision=precision)
+    idx = TFlat(base, metric=metric, tile=1024, precision=precision,
+                device="cpu")
     _assert_same_result(idx.search(q, k=10, query_batch=64), want)
 
 
@@ -55,7 +56,7 @@ def test_flat_uneven_batches(world):
     base, q = world
     want = JFlat(base[:500, :16], metric="ip", tile=128
                  ).search(q[:77, :16], k=5, query_batch=50)
-    got = TFlat(base[:500, :16], metric="ip", tile=128
+    got = TFlat(base[:500, :16], metric="ip", tile=128, device="cpu"
                 ).search(q[:77, :16], k=5, query_batch=50)  # 50 + 27 padded
     assert got[0].shape == (77, 5)
     _assert_same_result(got, want)
@@ -63,7 +64,7 @@ def test_flat_uneven_batches(world):
 
 def test_flat_device_out_and_empty(world):
     base, q = world
-    idx = TFlat(base, metric="ip", precision="int8")
+    idx = TFlat(base, metric="ip", precision="int8", device="cpu")
     ids, dists = idx.search(q[:7], k=3, device_out=True)
     assert isinstance(ids, torch.Tensor) and ids.dtype == torch.int32
     assert tuple(dists.shape) == (7, 3)
@@ -76,27 +77,28 @@ def test_flat_k_exceeds_corpus_raises():
     base = rng.standard_normal((7, 8)).astype(np.float32)
     q = rng.standard_normal((3, 8)).astype(np.float32)
     with pytest.raises(ValueError, match="corpus"):
-        TFlat(base, metric="ip").search(q, k=10)
+        TFlat(base, metric="ip", device="cpu").search(q, k=10)
 
 
 def test_flat_validation_errors():
     base, _ = make_cross_modal(600, 1, 48, metric="ip", seed=9)
     with pytest.raises(ValueError, match="dim % 128"):
-        TFlat(base, metric="ip", precision="scan")
+        TFlat(base, metric="ip", precision="scan", device="cpu")
     base2, _ = make_cross_modal(600, 1, 128, metric="l2", seed=9)
     with pytest.raises(ValueError, match="ip/cosine"):
-        TFlat(base2, metric="l2", precision="scan")
+        TFlat(base2, metric="l2", precision="scan", device="cpu")
     with pytest.raises(ValueError, match="global"):
-        TFlat(base2, metric="l2", precision="int8", int8_scale="global")
+        TFlat(base2, metric="l2", precision="int8", int8_scale="global",
+              device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        TFlat(base2, precision="fp8")
+        TFlat(base2, precision="fp8", device="cpu")
 
 
 def test_flat_benchmark_schema():
     base, q = make_cross_modal(1000, 64, 16, metric="ip", seed=53)
     want = JFlat(base, metric="ip", tile=512).benchmark(q, k=5,
                                                         query_batch=64)
-    got = TFlat(base, metric="ip", tile=512).benchmark(q, k=5,
+    got = TFlat(base, metric="ip", tile=512, device="cpu").benchmark(q, k=5,
                                                        query_batch=64)
     assert set(got) == set(want)
     assert got["qps"] > 0 and got["avg_cmps"] == 1000.0

@@ -68,7 +68,8 @@ def world():
 def test_table_bit_identical(world, bits):
     base, _, nb, tables = world
     jt, tt = tables[bits]
-    want = tf.fused_table_from_jax(np.asarray(jt), N, 16, D, bits)
+    want = tf.fused_table_from_jax(np.asarray(jt), N, 16, D, bits,
+                                   device="cpu")
     assert tt.shape == (N + 1, tf._row_bytes(16, D, bits))
     assert tt.dtype == torch.uint8
     np.testing.assert_array_equal(tt.numpy(), want.numpy())
@@ -118,7 +119,8 @@ def test_pack_validation_errors():
         tf.pack_neighbor_table(torch.zeros((64, 32)),
                                np.zeros((64, 16), np.int32), bits=2)
     with pytest.raises(ValueError, match="rows"):
-        tf.fused_table_from_jax(np.zeros((5, 8, 128), np.uint8), 5, 16, 32)
+        tf.fused_table_from_jax(np.zeros((5, 8, 128), np.uint8), 5, 16, 32,
+                                device="cpu")
 
 
 @pytest.mark.parametrize("bits,metric", [(8, "ip"), (4, "ip"), (8, "l2"),
@@ -287,7 +289,8 @@ def test_repack_changed_bit_identical(bits):
                      Mt, d, bits, blk=4)
     np.testing.assert_array_equal(
         inc.numpy(),
-        tf.fused_table_from_jax(np.asarray(j_inc), n, Mt, d, bits).numpy())
+        tf.fused_table_from_jax(np.asarray(j_inc), n, Mt, d, bits,
+                                device="cpu").numpy())
 
 
 # --- make_cross_modal recall (mirrors tests/test_fused.py) -----------------
@@ -298,21 +301,23 @@ def built():
     base, train_q = port.make_cross_modal(4000, 1500, 48, metric="ip",
                                           seed=11)
     _, eval_q = port.make_cross_modal(10, 300, 48, metric="ip", seed=99)
-    _, knn = port.exact_knn(train_q, base, k=32, metric="ip")
+    _, knn = port.exact_knn(train_q, base, k=32, metric="ip", device="cpu")
     cfg = port.BuildConfig(M_sq=32, M_pjbp=12, L_pjpq=64, metric="ip",
                            query_batch=512, search_batch=512,
                            connectivity_iters=4)
-    index = port.build_roargraph(base, train_q, knn, cfg, verbose=False)
-    _, gt = port.exact_knn(eval_q, base, k=10, metric="ip")
+    index = port.build_roargraph(base, train_q, knn, cfg, verbose=False,
+                                 device="cpu")
+    _, gt = port.exact_knn(eval_q, base, k=10, metric="ip", device="cpu")
     return base, eval_q, index, gt
 
 
 def test_fused_recall_close_to_f32(built):
     base, eval_q, index, gt = built
-    ids_a, *_ = port.Searcher(index, base).search(
+    ids_a, *_ = port.Searcher(index, base, device="cpu").search(
         eval_q, k=10, L=128, query_batch=300, visited_mode="pool")
-    ids_b, dists_b, cmps, hops = port.FusedSearcher(index, base).search(
-        eval_q, k=10, L=128, query_batch=300)
+    fs = port.FusedSearcher(index, base, device="cpu")
+    ids_b, dists_b, cmps, hops = fs.search(eval_q, k=10, L=128,
+                                           query_batch=300)
     ra, rb = compute_recall(ids_a, gt, 10), compute_recall(ids_b, gt, 10)
     assert rb > ra - 0.03, f"fused {rb} vs f32 {ra}"
     assert np.all(np.diff(dists_b, axis=1) >= -1e-5)  # reranked exact order
@@ -328,15 +333,15 @@ def test_fused_recall_matches_jax_searcher(built):
     kw = dict(k=10, L=64, query_batch=300, seeds=16, expand=2)
     j_ids, *_ = jf.FusedSearcher(jidx, base, seed_sample=8).search(eval_q,
                                                                    **kw)
-    t_ids, *_ = port.FusedSearcher(index, base, seed_sample=8).search(eval_q,
-                                                                      **kw)
+    t_ids, *_ = port.FusedSearcher(index, base, seed_sample=8,
+                                   device="cpu").search(eval_q, **kw)
     rj, rt = compute_recall(j_ids, gt, 10), compute_recall(t_ids, gt, 10)
     assert abs(rt - rj) <= 0.01, (rt, rj)
 
 
 def test_fused_seeded_search(built):
     base, eval_q, index, gt = built
-    fused = port.FusedSearcher(index, base, seed_sample=8)
+    fused = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
     ids, dists, *_ = fused.search(eval_q, k=10, L=64, query_batch=300,
                                   seeds=16)
     plain, *_ = fused.search(eval_q, k=10, L=64, query_batch=300)
@@ -347,10 +352,10 @@ def test_fused_seeded_search(built):
 
 def test_fused_seed_validation(built):
     base, eval_q, index, _ = built
-    plain = port.FusedSearcher(index, base)  # no sample kept
+    plain = port.FusedSearcher(index, base, device="cpu")  # no sample kept
     with pytest.raises(ValueError, match="seed_sample"):
         plain.search(eval_q[:4], k=5, L=32, seeds=8)
-    seeded = port.FusedSearcher(index, base, seed_sample=8)
+    seeded = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
     with pytest.raises(ValueError, match="seeds"):
         seeded.search(eval_q[:4], k=5, L=32, seeds=64)  # seeds > L
     with pytest.raises(ValueError, match="k"):
@@ -359,7 +364,7 @@ def test_fused_seed_validation(built):
 
 def test_fused_early_exit_trades_hops_for_recall(built):
     base, eval_q, index, gt = built
-    fused = port.FusedSearcher(index, base, seed_sample=8)
+    fused = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
     full = fused.search(eval_q, k=10, L=96, query_batch=300, seeds=16)
     fast = fused.search(eval_q, k=10, L=96, query_batch=300, seeds=16,
                         exit_f=0.5)
@@ -370,7 +375,7 @@ def test_fused_early_exit_trades_hops_for_recall(built):
 
 def test_fused_dists_are_exact(built):
     base, eval_q, index, _ = built
-    ids, dists, *_ = port.FusedSearcher(index, base).search(
+    ids, dists, *_ = port.FusedSearcher(index, base, device="cpu").search(
         eval_q[:50], k=5, L=64, query_batch=50)
     qn = eval_q[:50] / np.linalg.norm(eval_q[:50], axis=1, keepdims=True)
     bn = base / np.linalg.norm(base, axis=1, keepdims=True)
@@ -380,8 +385,8 @@ def test_fused_dists_are_exact(built):
 
 def test_fused_int4_recall_close_to_int8(built):
     base, eval_q, index, gt = built
-    f8 = port.FusedSearcher(index, base, seed_sample=8)
-    f4 = port.FusedSearcher(index, base, seed_sample=8, bits=4)
+    f8 = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
+    f4 = port.FusedSearcher(index, base, seed_sample=8, bits=4, device="cpu")
     a, _, *_ = f8.search(eval_q, k=10, L=96, query_batch=300, seeds=16)
     b, db, *_ = f4.search(eval_q, k=10, L=96, query_batch=300, seeds=16)
     ra, rb = compute_recall(a, gt, 10), compute_recall(b, gt, 10)
@@ -391,7 +396,7 @@ def test_fused_int4_recall_close_to_int8(built):
 
 def test_fused_pool_mode_matches_merge(built):
     base, eval_q, index, gt = built
-    fused = port.FusedSearcher(index, base, seed_sample=8)
+    fused = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
     a = fused.search(eval_q, k=10, L=96, query_batch=300, seeds=16,
                      visited_mode="merge")
     b = fused.search(eval_q, k=10, L=96, query_batch=300, seeds=16,
@@ -408,7 +413,8 @@ def test_fused_searcher_column_pad_and_max_degree(built):
     idx20 = port.RoarGraphIndex.from_numpy(index.graph.neighbors,
                                            index.graph.ep, "ip", 20)
     for bits in (8, 4):
-        fs = port.FusedSearcher(idx20, b20, bits=bits, max_degree=16)
+        fs = port.FusedSearcher(idx20, b20, bits=bits, max_degree=16,
+                                device="cpu")
         assert fs.d == (24 if bits == 8 else 32) and fs.M == 16
         ids, dists, *_ = fs.search(q20[:20], k=5, L=32)
         want = -(q20[:20, None, :] * b20[ids]).sum(-1)
@@ -417,7 +423,7 @@ def test_fused_searcher_column_pad_and_max_degree(built):
 
 def test_fused_benchmark_row_and_device_out(built):
     base, eval_q, index, _ = built
-    fs = port.FusedSearcher(index, base, seed_sample=8)
+    fs = port.FusedSearcher(index, base, seed_sample=8, device="cpu")
     r = fs.benchmark(eval_q, k=10, L=48, query_batch=128, seeds=16,
                      expand=2)
     assert r["ids"].shape == (300, 10) and r["ids"].dtype == np.int32

@@ -52,9 +52,9 @@ def test_normalize_and_prepare_vectors():
     x = rng.standard_normal((20, 16)).astype(np.float32)
     x[3] = 0.0   # the eps clamp
     want = np.asarray(jd.normalize_rows(jnp.asarray(x)))
-    got = td.prepare_vectors(x, "cosine").numpy()
+    got = td.prepare_vectors(x, "cosine", device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
-    assert td.prepare_vectors(x, "ip").dtype == torch.float32
+    assert td.prepare_vectors(x, "ip", device="cpu").dtype == torch.float32
 
 
 @pytest.mark.parametrize("num_keys", [1, 2, 3])
@@ -106,7 +106,7 @@ def test_exact_knn_dyadic_bit_identical(metric, base_tile):
     jdist, jids = jk.exact_knn(q, base, k=12, metric=metric, query_batch=32,
                                base_tile=base_tile, precision="highest")
     tdist, tids = tk.exact_knn(q, base, k=12, metric=metric, query_batch=32,
-                               base_tile=base_tile)
+                               base_tile=base_tile, device="cpu")
     np.testing.assert_array_equal(tids, jids)
     np.testing.assert_array_equal(tdist, jdist)
 
@@ -117,11 +117,11 @@ def test_exact_knn_cosine_and_ground_truth():
     q = rng.standard_normal((50, 24)).astype(np.float32)
     jdist, jids = jk.exact_knn(q, base, k=10, metric="cosine",
                                precision="highest")
-    tdist, tids = tk.exact_knn(q, base, k=10, metric="cosine")
+    tdist, tids = tk.exact_knn(q, base, k=10, metric="cosine", device="cpu")
     np.testing.assert_array_equal(tids, jids)
     np.testing.assert_allclose(tdist, jdist, rtol=1e-5, atol=1e-6)
     gi, gd = jk.compute_ground_truth(q, base, 10, metric="l2")
-    ti, tdd = tk.compute_ground_truth(q, base, 10, metric="l2")
+    ti, tdd = tk.compute_ground_truth(q, base, 10, metric="l2", device="cpu")
     assert ti.dtype == np.uint32
     np.testing.assert_array_equal(ti, gi)
     np.testing.assert_allclose(tdd, gd, rtol=1e-5, atol=1e-5)
@@ -234,3 +234,43 @@ def test_int8_knn_l2_needs_norm_and_exact_dim():
     wide = torch.zeros((4, 2048), dtype=torch.int8)
     with pytest.raises(ValueError, match="exact"):
         tk.int8_global_knn_device(wide, wide, k=2)
+
+
+ENTRY_POINTS = ["prepare_vectors", "exact_knn", "FlatIndex",
+                "make_scan_table"]
+
+
+def _call(name, x, **kw):
+    """One port entry point that places an array itself, on ``x``; returns
+    the tensor it placed (numpy results for exact_knn)."""
+    from mysteryann_tpu_torch.flat import FlatIndex
+    from mysteryann_tpu_torch.ops.scan import make_scan_table
+    if name == "prepare_vectors":
+        return td.prepare_vectors(x, "ip", **kw)
+    if name == "exact_knn":
+        return tk.exact_knn(x, x, k=2, **kw)
+    if name == "FlatIndex":
+        return FlatIndex(x, "ip", **kw).base
+    return make_scan_table(x, **kw)
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_array_without_device_needs_a_card(name):
+    """The port runs on the card unless asked: an array with no device
+    goes to CUDA, and without a card the call raises, never falls back."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the array goes to it")
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        _call(name, np.ones((8, 16), np.float32))
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_array_with_device_cpu_runs_on_the_cpu(name):
+    out = _call(name, np.ones((8, 16), np.float32), device="cpu")
+    if isinstance(out, torch.Tensor):
+        assert out.device.type == "cpu"
+
+
+def test_tensor_input_keeps_its_device():
+    x = torch.ones((8, 16))
+    assert td.prepare_vectors(x, "ip").device == x.device

@@ -44,13 +44,15 @@ def test_recall_within_001_of_jax():
     j_ids, *_ = JSearcher(j_index, base).search(eval_q, k=10, L=64,
                                                 query_batch=300)
 
-    _, t_train_knn = port.exact_knn(train_q, base, k=32, metric="ip")
+    _, t_train_knn = port.exact_knn(train_q, base, k=32, metric="ip",
+                                    device="cpu")
     t_index = port.build_roargraph(base, train_q, t_train_knn,
-                                   port.BuildConfig(**kw), verbose=False)
+                                   port.BuildConfig(**kw), verbose=False,
+                                   device="cpu")
     t_index.graph.validate()
     assert t_index.graph.degree_stats()["zero"] == 0
-    t_ids, *_ = port.Searcher(t_index, base).search(eval_q, k=10, L=64,
-                                                    query_batch=300)
+    t_ids, *_ = port.Searcher(t_index, base, device="cpu").search(
+        eval_q, k=10, L=64, query_batch=300)
 
     j_rec = compute_recall(j_ids, gt, 10)
     t_rec = port.compute_recall(t_ids, gt, 10)

@@ -60,7 +60,8 @@ def dyadic_builds(tmp_path_factory):
             j_build(base, train, knn, JConfig(**kw), verbose=False,
                     checkpoint_dir=j_dir),
             port.build_roargraph(base, train, knn, port.BuildConfig(**kw),
-                                 verbose=False, checkpoint_dir=t_dir))
+                                 verbose=False, checkpoint_dir=t_dir,
+                                 device="cpu"))
     return out
 
 
@@ -128,7 +129,8 @@ def fused_builds(tmp_path_factory):
                 j_build(base, train, knn, JConfig(**kw), verbose=False,
                         checkpoint_dir=j_dir),
                 port.build_roargraph(base, train, knn, port.BuildConfig(**kw),
-                                     verbose=False, checkpoint_dir=t_dir))
+                                     verbose=False, checkpoint_dir=t_dir,
+                                     device="cpu"))
     return out
 
 
@@ -153,7 +155,7 @@ def test_fused_engine_not_ported():
                                query_batch=128, search_batch=128)
         assert port.graph.roargraph._resolve_engine(cfg, 300, 16) == "fused"
         index = port.build_roargraph(base, base[:60], knn, cfg,
-                                     verbose=False)
+                                     verbose=False, device="cpu")
         index.graph.validate()
         st = index.graph.degree_stats()
         assert st["zero"] == 0 and st["max"] <= 8
@@ -171,7 +173,8 @@ def test_fused_build_with_seeds():
                            query_batch=128, search_batch=128)
     assert port.graph.roargraph._phase_d_knob_tag(cfg, 400, 16).endswith(
         "b4s8r4")
-    index = port.build_roargraph(base, base[:80], knn, cfg, verbose=False)
+    index = port.build_roargraph(base, base[:80], knn, cfg, verbose=False,
+                                 device="cpu")
     index.graph.validate()
     st = index.graph.degree_stats()
     assert st["zero"] == 0 and st["max"] <= 16
@@ -204,7 +207,8 @@ def test_fused_engine_needs_aligned_dims():
     cfg = port.BuildConfig(M_sq=8, M_pjbp=4, L_pjpq=8,
                            connectivity_engine="fused")
     with pytest.raises(ValueError, match="dim % 8"):
-        port.build_roargraph(base, base[:8], knn, cfg, verbose=False)
+        port.build_roargraph(base, base[:8], knn, cfg, verbose=False,
+                             device="cpu")
 
 
 def test_medoid_matches():

@@ -53,14 +53,14 @@ def test_searcher_identical_on_loaded_index(loaded, visited_mode, expand):
     kw = dict(k=10, L=40, query_batch=16, expand=expand,
               visited_mode=visited_mode)   # 50 queries: a short last batch
     want = JSearcher(j_index, base).search(queries, **kw)
-    got = port.Searcher(t_index, base).search(queries, **kw)
+    got = port.Searcher(t_index, base, device="cpu").search(queries, **kw)
     for name, w, g in zip(("ids", "dists", "cmps", "hops"), want, got):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_searcher_benchmark_row(loaded):
     base, queries, _, t_index = loaded
-    row = port.Searcher(t_index, base).benchmark(
+    row = port.Searcher(t_index, base, device="cpu").benchmark(
         queries, k=10, L=40, query_batch=32, visited_mode="pool", expand=2)
     assert row["ids"].shape == (50, 10) and row["qps"] > 0
     assert row["avg_hops"] > 0 and row["avg_cmps"] > 0
@@ -88,11 +88,12 @@ def test_seed_scan_matches():
 
 def test_searcher_seeded_search_runs(loaded):
     base, queries, _, t_index = loaded
-    s = port.Searcher(t_index, base, seed_sample=2)
+    s = port.Searcher(t_index, base, seed_sample=2, device="cpu")
     ids, dists, cmps, hops = s.search(queries, k=10, L=40, seeds=8)
     assert ids.shape == (50, 10) and np.isfinite(dists).all()
     with pytest.raises(ValueError):
-        port.Searcher(t_index, base).search(queries, k=10, L=40, seeds=8)
+        port.Searcher(t_index, base, device="cpu").search(
+            queries, k=10, L=40, seeds=8)
 
 
 @pytest.mark.parametrize("kw", [
