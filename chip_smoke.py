@@ -2,7 +2,8 @@
 time both hand-written kernels (the row gather K1 and the binned scan K2),
 drive the RoarGraph build-then-search path once at full width, then the
 flat serving path in four precisions, the fused engine (the bench's build
-recipe and its seeded serving sweep) and three CLIs on the same world.
+recipe and its seeded serving sweep), native persistence, the bipartite
+index, the IVF index and seven CLIs on the same world.
 
     python3 chip_smoke.py     # 1M x 128 base, 200k train queries, one card
 
@@ -36,9 +37,25 @@ Phases, one line each before the last:
      the bench's ten (expand, seeds, L) rows, then the classic Searcher on
      the same graph at L=100 (the bench's parity row); one row must reach
      recall@10 >= 0.95;
-  9. cli: the port's compute_gt, search_flat (int8) and search_roargraph
+  9. native: the fused index saved through the native host library and
+     through the numpy plain version — byte-identical files, equal loads,
+     both times; fails unless the library loaded;
+ 10. bipartite: scripts/bench_bipartite.py's recipe (M_pjbp=32,
+     base_row_cap=64) and two-hop BipartiteSearcher at L = 50, 100, 200,
+     400 over one 4,096-query batch of the eval queries; recall must not
+     fall as L rises and must reach 0.5 at L=400; the time per hop and a
+     profiler split of a batch's first 8 hops;
+ 11. ivf: IVFIndex with its defaults (2,000 clusters at 1M), f32 then int8
+     + keep_f32; grouped search at nprobe 16 / 64 / 128 (int8 with rerank
+     20); an exactness gate at nprobe = n_clusters; grouped against
+     ungrouped; build_ivf_streaming against the in-memory int8 index; K1
+     at the IVF block shapes against index_select (host-timed and in a
+     CUDA graph, 20 different index sets per run), with its bound; a
+     profiler split of one batch;
+ 12. cli: the port's compute_gt, search_flat (int8) and search_roargraph
      (--engine fused, seeded) CLIs through their main() on the same world
-     written as .fbin files.
+     written as .fbin files; then export_fbin, build_bipartite →
+     search_bipartite and build_ivf → search_ivf on a 200k-row slice.
 Then a JSON line with the kernels' records, and last a JSON line with the
 device. Any failed check exits non-zero before the last line is printed.
 """
@@ -89,6 +106,19 @@ SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
                   (4, 40, 64), (4, 40, 80), (4, 40, 112),
                   (3, 48, 144), (3, 48, 176), (2, 48, 224))
 TARGET_RECALL = 0.95
+# scripts/bench_bipartite.py's 1M recipe and sweep
+BIPARTITE_CFG = dict(M_sq=64, M_pjbp=32, metric=METRIC)
+BIPARTITE_CAP, BIPARTITE_LS, BIPARTITE_QB = 64, (50, 100, 200, 400), 4096
+# the two-hop loop is host-bound (~1.9 ms per hop-2 chunk merge): the sweep
+# serves one 4,096-query batch per L, and the CLI slice 2,048 queries
+BIPARTITE_QUERIES, CLI_BIPARTITE_QUERIES = 4096, 2048
+BIPARTITE_FLOOR = 0.5     # recall@10 at L=400: against a broken search
+IVF_NPROBES = (16, 64, 128)
+IVF_RERANK = 20
+# recall@10 at nprobe = n_clusters (every cluster scanned): f32 is exact;
+# int8 reranks a 20-row head in f32
+IVF_EXACT_FLOORS = {"f32": 0.999, "int8": 0.99}
+CLI_SLICE = 200_000
 
 
 def fail(msg: str) -> None:
@@ -135,6 +165,65 @@ def time_ms(fn, reps: int = 20, trials: int = 7) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / reps)
     return float(np.median(out))
+
+
+def time_ms_graph(fn, reps: int = 20, trials: int = 7) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed (median over ``trials``), so host launch overhead does
+    not count."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(out))
+
+
+def device_split(fn, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` from a torch.profiler trace: the
+    wall time (profiled), the kernels' summed time, their busy share of
+    the first-to-last kernel span, K1's share, and the ``top`` kernels by
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"wall_ms_profiled": wall * 1e3, "kernels_seen": len(kernels)}
+    if not kernels:
+        return out                # the profiler recorded no device activity
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    k1 = sum(v for k, v in by_name.items() if "gather_" in k
+             and ("rows_kernel" in k or "segments_kernel" in k))
+    out.update(device_ms=busy / 1e3, busy_share=busy / max(1, span),
+               k1_ms=k1 / 1e3,
+               top={k[:60]: v / 1e3 for k, v in sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:top]})
+    return out
 
 
 def kernel_checks(gather, dev) -> dict:
@@ -611,6 +700,268 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     return {"index": index, "k1_launches": build_launches + serve_launches}
 
 
+def native_path(fused_index, tmp_root: str = HERE) -> dict:
+    """Phase 9: the fused 1M index through the native host library and
+    through the numpy plain version: the same bytes, the same loads."""
+    from mysteryann_tpu_torch import native
+    from mysteryann_tpu_torch.graph import roargraph as rg
+
+    check(native.lib() is not None,
+          f"the native library did not load: {native.status()['error']}")
+    g = fused_index.graph
+    times = {}
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        paths = {r: os.path.join(tmp, f"{r}.index")
+                 for r in ("native", "python")}
+        before = dict(native.calls)
+        for route, save in (("native", rg.save_projection_graph),
+                            ("python", rg.save_projection_graph_ref)):
+            t0 = time.perf_counter()
+            save(paths[route], g)
+            times[f"save_{route}_s"] = time.perf_counter() - t0
+        with open(paths["native"], "rb") as a, open(paths["python"], "rb") as b:
+            same = a.read() == b.read()
+        size = os.path.getsize(paths["native"])
+        loads = {}
+        for route, load in (("native", rg.load_projection_graph),
+                            ("python", rg.load_projection_graph_ref)):
+            t0 = time.perf_counter()
+            loads[route] = load(paths["native"])
+            times[f"load_{route}_s"] = time.perf_counter() - t0
+    calls = {r: native.calls[r] - before[r] for r in ("native", "python")}
+    equal = all(x.ep == g.ep and np.array_equal(x.neighbors, g.neighbors)
+                for x in loads.values())
+    st = native.status()
+    phase("native", library=st["library"], loaded=st["loaded"],
+          bytes_identical=same, loads_equal=equal, file_bytes=size,
+          routes=calls, **times)
+    check(same, "native and Python graph files differ")
+    check(equal, "a graph load differs from the saved graph")
+    check(calls == {"native": 2, "python": 2},
+          f"the native / Python routes ran {calls}, not twice each")
+    return times
+
+
+def bipartite_path(port, gather, world: dict) -> int:
+    """Phase 10: the bipartite index with scripts/bench_bipartite.py's
+    recipe, two-hop search over the eval queries. Returns K1 launches."""
+    from mysteryann_tpu_torch.search.beam import beam_search
+
+    base_dev = world["base_dev"]
+    eval_q = world["eval_q"][:BIPARTITE_QUERIES]
+    gt_i, gt_d = (world["gt_i"][:BIPARTITE_QUERIES],
+                  world["gt_d"][:BIPARTITE_QUERIES])
+    t0 = time.perf_counter()
+    index = port.build_bipartite(world["base"], world["train_q"],
+                                 world["knn"],
+                                 port.BuildConfig(**BIPARTITE_CFG),
+                                 base_row_cap=BIPARTITE_CAP)
+    t_build = time.perf_counter() - t0
+    s = port.BipartiteSearcher(index, base_dev)
+    chunk = s.auto_two_hop_chunk(BIPARTITE_QB, base_dev.shape[1])
+    phase("bipartite_build", seconds=t_build,
+          shape=list(index.neighbors.shape), two_hop_chunk=chunk)
+    s.search(eval_q[:64], K, BIPARTITE_LS[0], device_out=True)   # warm-up
+    rows = []
+    # K1's count covers the L sweep through BipartiteSearcher and nothing
+    # else: the warm-up and the profiled steps below stay outside it
+    gather.reset_launches()
+    for L in BIPARTITE_LS:
+        r = s.benchmark(eval_q, k=K, L=L, query_batch=BIPARTITE_QB,
+                        warmup=0)
+        check(np.isfinite(r["dists"]).all()
+              and r["ids"].shape == (eval_q.shape[0], K)
+              and (r["ids"] < index.n_base).all(),
+              f"bipartite L={L}: results not finite / wrong shape / ids")
+        row = {"L_pq": L, "qps": r["qps"],
+               "recall@10": port.compute_recall(r["ids"], gt_i, K),
+               "rderr": port.compute_rderr(r["dists"], gt_d, K, METRIC),
+               "avg_cmps": r["avg_cmps"], "avg_hops": r["avg_hops"],
+               "batch_ms": r["mean_latency_ms"]}
+        rows.append(row)
+        phase("bipartite", **row)
+    launches = gather.launches
+    # where a hop's time goes: the first 8 steps of one batch at L=50, timed
+    # alone and under the profiler (a whole batch is ~10^6 kernels)
+    q = port.prepare_vectors(eval_q, METRIC, base_dev.device)
+
+    def steps():
+        beam_search(s.base, s.neighbors, s.eps, q, k=K, L=BIPARTITE_LS[0],
+                    metric=s.metric, two_hop=True, two_hop_chunk=chunk,
+                    max_hops=8)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    hop_ms = (time.perf_counter() - t0) * 1e3 / 8
+    phase("bipartite_split", L_pq=BIPARTITE_LS[0], queries=q.shape[0],
+          hops=8, ms_per_hop=hop_ms, **device_split(steps))
+    recalls = [r["recall@10"] for r in rows]
+    phase("bipartite_summary", k1_launches=launches, recalls=recalls,
+          error_flag=gather.error_flag_value())
+    check(launches > 0, "the bipartite search launched K1 0 times")
+    check(all(b >= a for a, b in zip(recalls, recalls[1:])),
+          f"bipartite recall falls as L rises: {recalls}")
+    check(recalls[-1] >= BIPARTITE_FLOOR,
+          f"bipartite recall@10 at L={BIPARTITE_LS[-1]} is "
+          f"{recalls[-1]:.4f} < {BIPARTITE_FLOOR}")
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (bipartite)")
+    return launches
+
+
+def ivf_k1_blocks(gather, index) -> dict:
+    """K1 on the IVF index's own block table (f32 or int8) at C = 4 and 64
+    rows per call: bit for bit against index_select; host-timed and
+    graph-timed ms of both, the HBM bound and the share."""
+    blocks = index.blocks
+    g = torch.Generator(device=blocks.device)
+    g.manual_seed(5)
+    out = {}
+    for C in (4, 64):
+        # 20 index sets, one per timed call, so a run of calls reads
+        # 20·C different blocks (up to 524 MB) instead of re-reading one
+        # set from the 50 MB L2
+        idxs = [torch.randint(0, blocks.shape[0], (C,), generator=g,
+                              device=blocks.device, dtype=torch.int32)
+                for _ in range(20)]
+        for idx in idxs[:2]:
+            got = gather.gather_rows(blocks, idx)
+            want = gather.gather_rows_ref(blocks, idx)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"K1 differs from index_select on IVF blocks "
+                  f"({blocks.dtype}, C={C})")
+        row_bytes = blocks[0].numel() * blocks.element_size()
+        bound = (2 * C * row_bytes + 4 * C) / HBM_BYTES_S * 1e3
+
+        def rotating(fn):
+            it = iter(idxs * 1000)
+            return lambda: fn(blocks, next(it))
+
+        t = {"kernel_ms": time_ms(rotating(gather.gather_rows)),
+             "index_select_ms": time_ms(rotating(gather.gather_rows_ref)),
+             "kernel_graph_ms": time_ms_graph(
+                 rotating(gather.gather_rows)),
+             "index_select_graph_ms": time_ms_graph(
+                 rotating(gather.gather_rows_ref)),
+             "bound_ms": bound, "row_bytes": row_bytes}
+        t["share_graph"] = bound / t["kernel_graph_ms"]
+        out[f"{str(blocks.dtype).split('.')[-1]}_C{C}"] = t
+    return out
+
+
+def ivf_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
+    """Phase 11: IVFIndex f32 and int8 on the main world; grouped sweep,
+    exactness gate, grouped vs ungrouped, streaming build, K1 at the block
+    shapes. Returns K1 launches and K1's IVF-block timings."""
+    base_dev, eval_q = world["base_dev"], world["eval_q"]
+    gt_i = world["gt_i"]
+    n, d = base_dev.shape
+    exact_q = eval_q[:1024]
+    launches, k1_blocks, rows, centroids = 0, {}, [], {}
+    for store in ("f32", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = port.IVFIndex(base_dev, METRIC, store=store,
+                            keep_f32=store == "int8")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        rerank = IVF_RERANK if store == "int8" else 0
+        phase("ivf_build", store=store, seconds=t_build,
+              n_clusters=idx.n_clusters, cap=idx.cap,
+              blocks=list(idx.blocks.shape),
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        centroids[store] = idx.centroids.clone()
+        # K1's count covers the grouped sweep and nothing else: the gate,
+        # the ungrouped parity run and the profiled batch stay outside it
+        gather.reset_launches()
+        for nprobe in IVF_NPROBES:
+            r = idx.benchmark(eval_q, k=K, nprobe=nprobe,
+                              query_batch=query_batch, rerank=rerank)
+            check(np.isfinite(r["dists"]).all()
+                  and r["ids"].shape == (eval_q.shape[0], K),
+                  f"ivf {store} nprobe={nprobe}: not finite / wrong shape")
+            row = {"store": store, "nprobe": nprobe, "rerank": rerank,
+                   "qps": r["qps"], "batch_ms": r["mean_latency_ms"],
+                   "recall@10": port.compute_recall(r["ids"], gt_i, K),
+                   "rderr": port.compute_rderr(r["dists"], world["gt_d"], K,
+                                               METRIC)}
+            rows.append(row)
+            phase("ivf", **row)
+        sweep_launches = gather.launches
+        phase("ivf_sweep", store=store, k1_launches=sweep_launches)
+        check(sweep_launches > 0,
+              f"the ivf {store} grouped sweep launched K1 0 times")
+        launches += sweep_launches
+        ids, _ = idx.search(exact_q, K, nprobe=idx.n_clusters,
+                            query_batch=exact_q.shape[0], rerank=rerank)
+        exact = port.compute_recall(ids, gt_i[:1024], K)
+        phase("ivf_exact", store=store, nprobe=idx.n_clusters,
+              queries=exact_q.shape[0], **{"recall@10": exact})
+        check(exact >= IVF_EXACT_FLOORS[store],
+              f"ivf {store} at nprobe = n_clusters: recall@10 {exact:.4f} "
+              f"< {IVF_EXACT_FLOORS[store]}")
+        if store == "f32":
+            # the ungrouped path as the grouped path's parity partner, on
+            # 256 queries with a slot budget that drops no probe
+            qs = port.prepare_vectors(eval_q[:256], METRIC, base_dev.device)
+            ig, dg = idx._search_grouped(qs, K, 16, slot_budget=256)
+            iu, du = idx._search_device(qs, K, 16)
+            agree = float((ig == iu).float().mean())
+            close = bool(torch.allclose(dg, du, rtol=1e-5, atol=1e-5))
+            phase("ivf_grouped_vs_ungrouped", queries=256, nprobe=16,
+                  ids_agree=agree, dists_close=close)
+            check(close and agree >= 0.999,
+                  f"grouped and ungrouped IVF differ (ids {agree})")
+            split = device_split(lambda: idx.search(
+                eval_q, K, nprobe=64, query_batch=query_batch,
+                device_out=True))
+            phase("ivf_split", store=store, nprobe=64,
+                  queries=eval_q.shape[0], **split)
+        k1_blocks.update(ivf_k1_blocks(gather, idx))
+        if store == "int8":
+            # the streamed index keeps no f32 rows: both without rerank
+            ids, _ = idx.search(eval_q, K, nprobe=64, query_batch=query_batch)
+            int8_recall = port.compute_recall(ids, gt_i, K)
+            t0 = time.perf_counter()
+            st = port.build_ivf_streaming(
+                lambda s0, w: base_dev[s0: s0 + w], n, d, metric=METRIC,
+                n_clusters=idx.n_clusters, cap_factor=1.6, kmeans_iters=10,
+                tile=262144)
+            torch.cuda.synchronize()
+            t_st = time.perf_counter() - t0
+            gather.reset_launches()
+            ids, _ = st.search(eval_q, K, nprobe=64, query_batch=query_batch)
+            st_launches = gather.launches
+            launches += st_launches
+            rec = port.compute_recall(ids, gt_i, K)
+            phase("ivf_streaming", seconds=t_st, cap=st.cap,
+                  k1_launches=st_launches,
+                  **{"recall@10": rec, "in_memory_recall@10": int8_recall})
+            check(st_launches > 0,
+                  "the streamed IVF index's search launched K1 0 times")
+            check(abs(rec - int8_recall) <= 0.005,
+                  f"streamed int8 recall {rec:.4f} vs in-memory "
+                  f"{int8_recall:.4f}")
+            del st
+        del idx
+        torch.cuda.empty_cache()
+    phase("ivf_k1_blocks", bit_identical=True, timings=k1_blocks)
+    # both builds run k-means on the same base with the same seed: sorted
+    # segment sums make the centroids the same bits on every run
+    same_centroids = torch.equal(centroids["f32"], centroids["int8"])
+    phase("ivf_summary", k1_launches=launches,
+          kmeans_bit_identical=same_centroids,
+          error_flag=gather.error_flag_value())
+    check(same_centroids, "the two IVF builds' k-means centroids differ")
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (ivf)")
+    return {"k1_launches": launches, "k1_blocks": k1_blocks}
+
+
 def cli_path(world: dict, gather, fused_index, tmp_root: str = HERE) -> int:
     """Phase 9: compute_gt, search_flat and search_roargraph (fused,
     seeded) through their main() on the world written as .fbin files.
@@ -668,7 +1019,90 @@ def cli_path(world: dict, gather, fused_index, tmp_root: str = HERE) -> int:
                         "times")
     check(recall >= TARGET_RECALL, f"search_roargraph --engine fused recall "
                                    f"{recall} < {TARGET_RECALL}")
-    return launches
+    return launches + cli_slice_path(world, gather, tmp_root)
+
+
+def _last_row(out: io.StringIO) -> list:
+    return [ln.split() for ln in out.getvalue().splitlines()
+            if ln.split()[:1] and ln.split()[0].isdigit()][-1]
+
+
+def cli_slice_path(world: dict, gather, tmp_root: str = HERE) -> int:
+    """Phase 12, second part: export_fbin writes a 200k-row slice of the
+    base, the train queries and 2,048 eval queries from .npy; compute_gt, build_bipartite → search_bipartite and
+    build_ivf → search_ivf run on it through main(). Returns their K1
+    launches."""
+    from mysteryann_tpu_torch.cli import (build_bipartite, build_ivf,
+                                          compute_gt, export_fbin,
+                                          search_bipartite, search_ivf)
+
+    launches = 0
+    with tempfile.TemporaryDirectory(dir=tmp_root) as tmp:
+        p = {name: os.path.join(tmp, name) for name in (
+            "base.npy", "train.npy", "eval.npy", "base.fbin", "train.fbin",
+            "eval.fbin", "gt.bin", "bip.index", "ivf.npz")}
+        t0 = time.perf_counter()
+        np.save(p["base.npy"], world["base"][:CLI_SLICE])
+        np.save(p["train.npy"], world["train_q"])
+        np.save(p["eval.npy"], world["eval_q"][:CLI_BIPARTITE_QUERIES])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            for name in ("base", "train", "eval"):
+                check(export_fbin.main(["--npy", p[f"{name}.npy"], "--out",
+                                        p[f"{name}.fbin"]]) == 0,
+                      f"export_fbin ({name}) failed")
+            check(compute_gt.main([
+                "--base_data_path", p["base.fbin"], "--query_path",
+                p["eval.fbin"], "--k", str(K), "--dist", METRIC,
+                "--format", "gt", "--out_path", p["gt.bin"]]) == 0,
+                "compute_gt (slice) failed")
+        gather.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_b = build_bipartite.main([
+                "--base_data_path", p["base.fbin"],
+                "--sampled_query_data_path", p["train.fbin"],
+                "--bipartite_index_save_path", p["bip.index"],
+                "--M_sq", "64", "--M_pjbp", "32", "--base_row_cap",
+                str(BIPARTITE_CAP), "--dist", METRIC, "--query_batch",
+                "8192"])
+            rc_s = search_bipartite.main([
+                "--base_data_path", p["base.fbin"], "--query_path",
+                p["eval.fbin"], "--gt_path", p["gt.bin"],
+                "--bipartite_index_save_path", p["bip.index"], "--k", str(K),
+                "--L_pq", "100", "--query_batch",
+                str(CLI_BIPARTITE_QUERIES)])
+        l_bip = gather.launches
+        check(rc_b == 0 and rc_s == 0,
+              f"build_bipartite / search_bipartite exited {rc_b} / {rc_s}")
+        row_b = _last_row(out)
+        gather.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_bi = build_ivf.main([
+                "--base_data_path", p["base.fbin"], "--index_save_path",
+                p["ivf.npz"], "--store", "int8", "--dist", METRIC])
+            rc_si = search_ivf.main([
+                "--index_path", p["ivf.npz"], "--base_data_path",
+                p["base.fbin"], "--query_path", p["eval.fbin"], "--gt_path",
+                p["gt.bin"], "--k", str(K), "--nprobe", "16", "64",
+                "--rerank", str(IVF_RERANK), "--query_batch", "8192"])
+        l_ivf = gather.launches
+        check(rc_bi == 0 and rc_si == 0,
+              f"build_ivf / search_ivf exited {rc_bi} / {rc_si}")
+        row_i = _last_row(out)
+        phase("cli_slice", rows=CLI_SLICE, search_bipartite_row=row_b,
+              search_ivf_row=row_i, k1_launches_bipartite=l_bip,
+              k1_launches_ivf=l_ivf, seconds=time.perf_counter() - t0)
+    check(l_bip > 0 and l_ivf > 0,
+          f"the bipartite / IVF CLIs launched K1 {l_bip} / {l_ivf} times")
+    check(float(row_b[4]) >= BIPARTITE_FLOOR,
+          f"search_bipartite recall {row_b[4]} < {BIPARTITE_FLOOR}")
+    # floors against a broken search (1M world, in-process: .860 at nprobe
+    # 64; the 200k slice's 894 clusters: .891 — measured on one H100)
+    check(float(row_i[4]) >= 0.8,
+          f"search_ivf (int8, rerank, nprobe 64) recall {row_i[4]} < 0.8")
+    return l_bip + l_ivf
 
 
 def main() -> None:
@@ -706,6 +1140,9 @@ def main() -> None:
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
     flat = flat_path(port, gather, scan, run)
     fused = fused_path(port, gather, run)
+    native_path(fused["index"])
+    k1_bip = bipartite_path(port, gather, run)
+    ivf = ivf_path(port, gather, run)
     k1_cli = cli_path(run, gather, fused["index"])
     phase("smoke", seconds=time.perf_counter() - t_start)
 
@@ -713,7 +1150,8 @@ def main() -> None:
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": (run["launches"] + flat["k1_launches"]
-                      + fused["k1_launches"] + k1_cli),
+                      + fused["k1_launches"] + k1_bip + ivf["k1_launches"]
+                      + k1_cli),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},

@@ -15,15 +15,24 @@ Ported so far:
   neighbour blocks inline in one byte row per node) → ``compute_recall``;
 - flat serving — ``FlatIndex`` in f32, bf16, int8 and scan precision, with
   the int8 kNN scans and an exact f32 rerank;
-- ``io.formats`` (fbin / ibin / ground-truth files) and the CLIs
-  ``compute_gt``, ``build_roargraph``, ``search_roargraph`` (classic and
-  fused engines) and ``search_flat``, run as ``python -m
+- the bipartite index — ``build_bipartite`` → ``BipartiteIndex.save``/
+  ``load`` → two-hop ``BipartiteSearcher.search``;
+- the IVF index — ``IVFIndex`` (f32 or int8 cluster blocks, grouped or
+  ungrouped search, exact f32 rerank) and ``build_ivf_streaming``;
+- native persistence (``native``: the g++-built host library for graph
+  files and the prefetching fbin reader, with numpy plain versions),
+  ``load_nsg_graph``;
+- ``io.formats`` (fbin / ibin / ground-truth files), ``io.stream``,
+  ``io.datasets`` and the CLIs ``compute_gt``, ``build_roargraph``,
+  ``search_roargraph`` (classic and fused engines), ``search_flat``,
+  ``build_bipartite``, ``search_bipartite``, ``build_ivf``, ``search_ivf``,
+  ``prepare_data`` and ``export_fbin``, run as ``python -m
   mysteryann_tpu_torch.cli.<name>``.
 
 Two hand-written CUDA kernels carry these paths, each built with nvcc at
 first use on a CUDA device: the row gather (``ops.gather``, source
-``csrc/gather.cu``) for every row fetch — the fused engine's byte rows
-included — and the binned scan (``ops.scan``,
+``csrc/gather.cu``) for every row fetch — the fused engine's byte rows and
+the IVF cluster blocks included — and the binned scan (``ops.scan``,
 ``csrc/scan.cu``) for ``FlatIndex(precision="scan")``. ROADMAP.md lists
 what is still to come.
 """
@@ -61,6 +70,12 @@ from mysteryann_tpu_torch.graph.roargraph import (  # noqa: F401
     compute_medoid,
     save_projection_graph,
     load_projection_graph,
+    load_nsg_graph,
+)
+from mysteryann_tpu_torch.graph.bipartite import (  # noqa: F401
+    BipartiteIndex,
+    BipartiteSearcher,
+    build_bipartite,
 )
 from mysteryann_tpu_torch.search.beam import beam_search, search_batched, SearchResult  # noqa: F401
 from mysteryann_tpu_torch.search.searcher import Searcher  # noqa: F401
@@ -74,4 +89,6 @@ from mysteryann_tpu_torch.io.formats import (  # noqa: F401
     read_gt_with_dist,
     write_gt_with_dist,
 )
+from mysteryann_tpu_torch.io.stream import stream_fbin, load_fbin_to_device  # noqa: F401
 from mysteryann_tpu_torch.flat import FlatIndex  # noqa: F401
+from mysteryann_tpu_torch.ivf import IVFIndex, build_ivf_streaming  # noqa: F401

@@ -32,9 +32,11 @@ regardless of metric (CalculateProjectionep:2004-2041).
 
 What the port takes: both phase-D engines — classic (the f32 lockstep
 beam) and fused (quantized neighbour-block byte rows, search/fused.py) —
-with the single fold at every N. The slab fold that exists for 16 GB
-chips, the host reverse-aggregation and projection paths and the native
-persistence fast path are not ported (ROADMAP.md). Tensors are updated in
+with the single fold at every N, and persistence through the native host
+library (``native``, g++-built at first use) with the numpy path as its
+plain version (byte-identical files either way). The slab fold that exists
+for 16 GB chips and the host reverse-aggregation and projection paths are
+not ported (ROADMAP.md). Tensors are updated in
 place where the JAX package donated its buffers; the supply graph is a
 fresh copy that never aliases the projection it starts from. Every row of
 every batched step is independent of the other rows, so batches are cut
@@ -43,6 +45,7 @@ to whatever size fits and never padded.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -55,7 +58,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mysteryann_tpu_torch.graph.adjacency import PaddedGraph
+from mysteryann_tpu_torch import native
+from mysteryann_tpu_torch.graph.adjacency import (PaddedGraph, ragged_row_starts,
+                                                  ragged_to_padded, ragged_words)
 from mysteryann_tpu_torch.graph.prune import batched_occlusion_prune, dists_to_src
 from mysteryann_tpu_torch.index import register_index
 from mysteryann_tpu_torch.ops.distances import Metric, prepare_vectors
@@ -119,52 +124,89 @@ class RoarGraphIndex:
 
 
 def save_projection_graph(path: str, g: PaddedGraph) -> None:
-    # assemble the [deg, ids…]* word stream in one array instead of 2
-    # Python calls per node
+    """Write ``g`` in the reference's projection format, through the native
+    library when it loads (``native.lib()``), else `save_projection_graph_ref`.
+    Both write the same bytes."""
+    L = native.lib()
+    if L is None:
+        save_projection_graph_ref(path, g)
+        return
     nb = np.ascontiguousarray(g.neighbors, np.int32)
-    n = g.n_nodes
-    valid = nb < n
-    degs = valid.sum(axis=1).astype(np.int64)
-    row_starts = np.zeros(n, np.int64)
-    np.cumsum(1 + degs[:-1], out=row_starts[1:])
-    out = np.empty(int(n + degs.sum()), np.uint32)
-    out[row_starts] = degs.astype(np.uint32)
-    rank = np.cumsum(valid, axis=1) - 1
-    out[(row_starts[:, None] + 1 + rank)[valid]] = nb[valid].astype(np.uint32)
+    rc = L.msann_save_projection(path.encode(), g.ep, g.n_nodes,
+                                 native.ptr_i32(nb), nb.shape[1])
+    if rc != 0:
+        raise OSError(f"native save failed ({rc}) for {path}")
+    native.note("native")
+
+
+def save_projection_graph_ref(path: str, g: PaddedGraph) -> None:
+    """The plain version: the ``[deg, ids…]`` word stream assembled in one
+    numpy array instead of 2 Python calls per node."""
     with open(path, "wb") as f:
-        f.write(struct.pack("<II", g.ep, n))
-        out.tofile(f)
+        f.write(struct.pack("<II", g.ep, g.n_nodes))
+        ragged_words(g.neighbors, g.n_nodes).tofile(f)
+    native.note("python")
 
 
 def load_projection_graph(path: str, m_pad: Optional[int] = None) -> PaddedGraph:
+    """Read a projection graph file (rows wider than ``m_pad`` truncated),
+    through the native library when it loads, else
+    `load_projection_graph_ref`. Trailing bytes raise ``ValueError``."""
+    L = native.lib()
+    if L is None:
+        return load_projection_graph_ref(path, m_pad)
+    ep, n, md = ctypes.c_uint32(), ctypes.c_uint32(), ctypes.c_uint32()
+    words = ctypes.c_int64()
+    rc = L.msann_scan_projection(path.encode(), ctypes.byref(ep),
+                                 ctypes.byref(n), ctypes.byref(md),
+                                 ctypes.byref(words))
+    if rc == native.EINVAL:
+        raise ValueError(f"{path}: trailing bytes in projection graph file")
+    if rc != 0:
+        raise OSError(f"native scan failed ({rc}) for {path}")
+    nb = np.empty((n.value, m_pad or max(int(md.value), 1)), np.int32)
+    rc = L.msann_load_projection(path.encode(), native.ptr_i32(nb), n.value,
+                                 nb.shape[1])
+    if rc != 0:
+        raise OSError(f"native load failed ({rc}) for {path}")
+    native.note("native")
+    return PaddedGraph(neighbors=nb, ep=int(ep.value))
+
+
+def load_projection_graph_ref(path: str,
+                              m_pad: Optional[int] = None) -> PaddedGraph:
+    """The plain version: a Python walk over the row starts, then the
+    degree extraction and id placement vectorized."""
     with open(path, "rb") as f:
         ep, n = struct.unpack("<II", f.read(8))
         payload = np.fromfile(f, dtype=np.uint32)
-    # row starts follow the data-dependent recurrence s+1+deg — the only
-    # sequential part; degree extraction and id placement are vectorized.
-    # The walk reads the payload in chunks of Python ints (a whole-payload
-    # tolist() is ~28 B/word of transient memory)
-    starts = np.empty(n, np.int64)
-    off = 0
-    CH = 1 << 22
-    lo, words = 0, []
-    for i in range(n):
-        starts[i] = off
-        if not lo <= off < lo + len(words):
-            lo = off
-            words = payload[lo: lo + CH].tolist()
-        off += 1 + words[off - lo]
+    starts, off = ragged_row_starts(payload, n)
+    if starts.size != n:
+        raise ValueError(f"{path}: truncated projection graph file "
+                         f"({starts.size} of {n} rows)")
     if off != payload.size:
         raise ValueError(f"{path}: trailing bytes in projection graph file")
-    degs = payload[starts].astype(np.int64)
-    m_pad = m_pad or max(int(degs.max(initial=0)), 1)
-    nb = np.full((n, m_pad), n, np.int32)
-    cols = np.arange(m_pad, dtype=np.int64)
-    # truncate rows wider than m_pad
-    mask = cols[None, :] < np.minimum(degs, m_pad)[:, None]
-    pos = starts[:, None] + 1 + cols[None, :]
-    nb[mask] = payload[pos[mask]].astype(np.int32)
-    return PaddedGraph(neighbors=nb, ep=int(ep))
+    native.note("python")
+    return PaddedGraph(neighbors=ragged_to_padded(payload, starts, n, m_pad),
+                       ep=int(ep))
+
+
+def load_nsg_graph(path: str, n_nodes: int = 0,
+                   m_pad: Optional[int] = None) -> PaddedGraph:
+    """Import an NSG-format graph: ``[width u32][ep u32]`` then per node
+    ``[deg u32][ids…]`` (reference LoadNsgGraph,
+    src/index_bipartite.cpp:2073-2095 — which hardcodes npts=1,000,000;
+    here ``n_nodes=0`` means read until EOF)."""
+    with open(path, "rb") as f:
+        _width, ep = struct.unpack("<II", f.read(8))
+        payload = np.fromfile(f, dtype=np.uint32)
+    starts, _ = ragged_row_starts(payload, n_nodes or None)
+    if n_nodes and starts.size != n_nodes:
+        raise ValueError(f"{path}: expected {n_nodes} nodes, "
+                         f"parsed {starts.size}")
+    n = starts.size
+    return PaddedGraph(neighbors=ragged_to_padded(payload, starts, n, m_pad),
+                       ep=int(ep))
 
 
 # --------------------------------------------------------------------------

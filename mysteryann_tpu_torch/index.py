@@ -9,16 +9,18 @@ holds the vector data pointers. Here the metric dispatch lives in
 `ops.distances.Metric`/`prepare_vectors` (cosine = normalize-then-IP,
 exactly the reference's convention), and the surface splits in two —
 index DATA (host/device tensors + save/load) is separate from the SEARCH
-engine bound to it. Port of ``mysteryann_tpu/index.py``. Registered:
-``roargraph`` and ``flat``; the kinds not yet ported (bipartite, ivf)
-are not registered here:
+engine bound to it. Port of ``mysteryann_tpu/index.py``; the same four
+kinds are registered: ``roargraph``, ``bipartite``, ``flat`` and ``ivf``.
 
 | reference                  | here                                      |
 |----------------------------|-------------------------------------------|
 | IndexBipartite::BuildRoarGraph | graph.build_roargraph → RoarGraphIndex |
+| IndexBipartite::BuildBipartite | graph.build_bipartite → BipartiteIndex |
 | Save/LoadProjectionGraph   | RoarGraphIndex.save/.load                 |
+| bipartite Save/Load        | BipartiteIndex.save/.load                 |
 | SearchRoarGraph            | search.Searcher / search.FusedSearcher    |
-| (no counterpart)           | flat.FlatIndex (exact scan serving)       |
+| SearchBipartiteGraph       | graph.BipartiteSearcher                   |
+| (no flat / IVF in reference) | flat.FlatIndex, ivf.IVFIndex            |
 
 This module's registry maps a string kind → container class, used by
 CLIs and tooling to resolve an index by name.
@@ -64,5 +66,7 @@ def get_index_cls(kind: str) -> Type:
 
 def _ensure_registered() -> None:
     # import sites apply the decorators
-    import mysteryann_tpu_torch.graph.roargraph  # noqa: F401
     import mysteryann_tpu_torch.flat  # noqa: F401
+    import mysteryann_tpu_torch.ivf  # noqa: F401
+    import mysteryann_tpu_torch.graph.roargraph  # noqa: F401
+    import mysteryann_tpu_torch.graph.bipartite  # noqa: F401

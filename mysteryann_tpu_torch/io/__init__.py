@@ -11,3 +11,12 @@ from mysteryann_tpu_torch.io.formats import (  # noqa: F401
     data_align,
 )
 from mysteryann_tpu_torch.io.synthetic import make_cross_modal  # noqa: F401
+from mysteryann_tpu_torch.io.datasets import (  # noqa: F401
+    REGISTRY,
+    DatasetSpec,
+    export_fbin_from_npy,
+    pool_frame_embeddings,
+    pool_frame_embeddings_batch,
+    prepare,
+)
+from mysteryann_tpu_torch.io.stream import stream_fbin, load_fbin_to_device  # noqa: F401

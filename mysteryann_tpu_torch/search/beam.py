@@ -104,9 +104,22 @@ def _first_occurrence(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(dup).scatter_(1, si, ~dup)
 
 
+def _hop2(neighbors: torch.Tensor, hop1: torch.Tensor,
+          n_total: int) -> torch.Tensor:
+    """The neighbours of the hop-1 ids ``hop1`` [B, c] (sentinel ``n_total``
+    rows stay all-sentinel), flattened to a [B, c·M] fan-out."""
+    B, c = hop1.shape
+    rows = gather_rows_any(neighbors,
+                           torch.clamp(hop1, max=n_total - 1).reshape(-1))
+    rows = rows.reshape(B, c, neighbors.shape[1])
+    rows = torch.where((hop1 < n_total)[:, :, None], rows,
+                       torch.full_like(rows, n_total))
+    return rows.reshape(B, -1)
+
+
 def beam_search(
     base: torch.Tensor,            # f32 [N, d] (metric-preprocessed)
-    neighbors: torch.Tensor,       # int32 [N, M_pad], sentinel >= N
+    neighbors: torch.Tensor,       # int32 [N(+Nq), M_pad], sentinel >= n_total
     eps: torch.Tensor,             # int32 [E] entry point ids (shared by batch)
     queries: torch.Tensor,         # f32 [B, d]
     k: int,
@@ -119,8 +132,20 @@ def beam_search(
     collect_expanded: int = 0,
     seed_ids: torch.Tensor | None = None,   # int32 [B, S] per-query entries
     seed_d: torch.Tensor | None = None,     # f32 [B, S] their distances
+    two_hop_chunk: int = 0,  # >0: hop-2 groups processed per inner step
 ) -> SearchResult:
     """Best-first beam search of `queries` over the padded graph.
+
+    `two_hop=True` reproduces the bipartite search pattern (reference
+    src/index_bipartite.cpp:282-356): pool entries are base nodes, and an
+    expansion visits neighbours-of-neighbours (base→query→base). In that
+    mode `neighbors` covers base + query nodes ``[N + Nq, M]`` (global id
+    space, sentinel ``N + Nq``), vectors are gathered for base ids only, the
+    bitmask spans the base ids, and ``expand`` is forced to 1. Hop 2 runs
+    either as one ``[B, M·M]`` fan-out or, with ``0 < two_hop_chunk < M``,
+    in chunks of ``two_hop_chunk`` hop-1 rows merged one after the other;
+    the incremental merges keep the top L exactly, so both give the same
+    results.
 
     `visited_mode` selects the dedup structure:
 
@@ -137,14 +162,8 @@ def beam_search(
       re-scored and deduplicated INSIDE the merge: sort by (id,
       expanded-first, dist), keep the first copy of each id run, resort by
       distance. Results can differ from "bitmask" by ulp-level ties only.
-
-    ``two_hop`` (the bipartite search) is not ported yet.
     """
     metric = Metric.parse(metric)
-    if two_hop:
-        raise NotImplementedError(
-            "two_hop (bipartite) beam search is not ported yet; see "
-            "ROADMAP.md Queue 1")
     if k > L:
         raise ValueError(f"k ({k}) must be <= L ({L})")
     if visited_mode not in ("bitmask", "pool", "merge"):
@@ -200,7 +219,7 @@ def beam_search(
     hist_ids = torch.full((B, H + 1), n_total, dtype=i32, device=dev)
     hist_d = torch.full((B, H + 1), _INF, device=dev)
 
-    e = expand
+    e = 1 if two_hop else expand
     L_iota = torch.arange(L, dtype=i32, device=dev).expand(B, L)
     e_iota = torch.arange(e, dtype=i32, device=dev)[None, :]
 
@@ -290,8 +309,18 @@ def beam_search(
         nbrs = gather_rows_any(neighbors, cur_c.reshape(-1)).reshape(B, e, M)
         nbrs = torch.where((cur < n_total)[:, :, None], nbrs,
                            torch.full_like(nbrs, n_total))
-        cand_ids, cand_d, cand_exp = process(cand_ids, cand_d, cand_exp,
-                                             nbrs.reshape(B, e * M))
+        if not two_hop:
+            fanouts = [nbrs.reshape(B, e * M)]
+        else:
+            # hop 2, base→query→base: [B, c, M] neighbour-row gathers per
+            # chunk of c hop-1 rows (all M at once without chunking)
+            c = two_hop_chunk if 0 < two_hop_chunk < M else M
+            nbrs1 = nbrs.reshape(B, M)       # two_hop forces e == 1
+            fanouts = (_hop2(neighbors, nbrs1[:, s: s + c], n_total)
+                       for s in range(0, M, c))
+        for fan in fanouts:
+            cand_ids, cand_d, cand_exp = process(cand_ids, cand_d, cand_exp,
+                                                 fan)
         hops.add_(torch.sum(sel_valid, dim=1, dtype=i32))
 
     return SearchResult(

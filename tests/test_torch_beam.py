@@ -130,8 +130,10 @@ def test_search_batched_matches(world):
 
 
 def test_two_hop_not_ported(world):
+    """two_hop is ported (it once raised NotImplementedError): on a
+    one-sided graph it runs and matches the JAX package, chunked too."""
     base, queries, nb, ep = world
-    with pytest.raises(NotImplementedError):
-        tbeam.beam_search(torch.from_numpy(base), torch.from_numpy(nb),
-                          torch.tensor([ep], dtype=torch.int32),
-                          torch.from_numpy(queries), k=10, L=32, two_hop=True)
+    for chunk in (0, 3):
+        j, t = _run_both(world, k=10, L=32, metric="ip", two_hop=True,
+                         two_hop_chunk=chunk)
+        _assert_same(j, t)

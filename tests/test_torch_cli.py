@@ -14,13 +14,22 @@ import pytest
 import torch
 
 from mysteryann_tpu import io as jio
+from mysteryann_tpu.cli import build_bipartite as j_build_bipartite
+from mysteryann_tpu.cli import build_ivf as j_build_ivf
 from mysteryann_tpu.cli import build_roargraph as j_build_roargraph
 from mysteryann_tpu.cli import compute_gt as j_compute_gt
+from mysteryann_tpu.cli import export_fbin as j_export_fbin
+from mysteryann_tpu.cli import prepare_data as j_prepare_data
+from mysteryann_tpu.cli import search_bipartite as j_search_bipartite
+from mysteryann_tpu.cli import search_ivf as j_search_ivf
 from mysteryann_tpu.cli import search_roargraph as j_search_roargraph
 from mysteryann_tpu.ops import exact_knn as j_knn
 from mysteryann_tpu_torch import io as tio
-from mysteryann_tpu_torch.cli import (build_roargraph, compute_gt,
-                                      search_flat, search_roargraph)
+from mysteryann_tpu_torch.cli import (build_bipartite, build_ivf,
+                                      build_roargraph, compute_gt,
+                                      export_fbin, prepare_data,
+                                      search_bipartite, search_flat,
+                                      search_ivf, search_roargraph)
 
 CPU = ["--device", "cpu"]   # the port's counterpart of JAX_PLATFORMS=cpu
 
@@ -275,6 +284,16 @@ def _no_card(monkeypatch):
                   "eval.fbin", "--k", "10", "--out_path", "x.bin"]),
     (search_flat, ["--base_data_path", "base.fbin", "--query_path",
                    "eval.fbin", "--gt_path", "gt.bin"]),
+    (build_bipartite, ["--base_data_path", "base.fbin",
+                       "--sampled_query_data_path", "train.fbin",
+                       "--bipartite_index_save_path", "b.index"]),
+    (search_bipartite, ["--base_data_path", "base.fbin", "--query_path",
+                        "eval.fbin", "--gt_path", "gt.bin",
+                        "--bipartite_index_save_path", "b.index"]),
+    (build_ivf, ["--base_data_path", "base.fbin", "--index_save_path",
+                 "ivf.npz"]),
+    (search_ivf, ["--index_path", "ivf.npz", "--query_path", "eval.fbin",
+                  "--gt_path", "gt.bin"]),
 ])
 def test_cli_without_a_card_exits_with_the_message(data_dir, capsys,
                                                    monkeypatch, cli, argv):
@@ -297,3 +316,127 @@ def test_cli_device_cpu_runs_without_a_card(data_dir, capsys, monkeypatch):
         "--query_batch", "100", "--precision", "f32", *CPU]) == 0
     assert float(capsys.readouterr().out.strip().splitlines()[-1]
                  .split()[4]) > 0.99
+
+
+def _dyadic_world(tmp_path, n=900, nq=2700, d=16, seed=8):
+    """Dyadic base / train / eval .fbin files, the exact train kNN (k=12)
+    and the eval ground truth, shared by both packages' CLIs."""
+    rng = np.random.default_rng(seed)
+    base = (rng.integers(-64, 65, size=(n, d)) / 64).astype(np.float32)
+    train = (rng.integers(-64, 65, size=(nq, d)) / 64).astype(np.float32)
+    evalq = (rng.integers(-64, 65, size=(64, d)) / 64).astype(np.float32)
+    _, knn = j_knn(train, base, k=12, metric="ip", precision="highest")
+    gt_d, gt_i = j_knn(evalq, base, k=10, metric="ip", precision="highest")
+    paths = {name: str(tmp_path / f"{name}.fbin")
+             for name in ("base", "train", "eval")}
+    for name, arr in (("base", base), ("train", train), ("eval", evalq)):
+        tio.write_fbin(paths[name], arr)
+    paths["knn"] = str(tmp_path / "knn.ibin")
+    tio.write_knn_ibin(paths["knn"], knn.astype(np.uint32))
+    paths["gt"] = str(tmp_path / "gt.bin")
+    tio.write_gt_with_dist(paths["gt"], gt_i.astype(np.uint32), gt_d)
+    return paths
+
+
+def _quality_cols(rows):
+    """(L_pq, avg_cmps, recall, rderr, avg_hops) of each result row — all
+    but QPS and latency, which are times."""
+    return [(r[0], r[2], r[4], r[5], r[6]) for r in rows]
+
+
+def test_bipartite_clis_match_jax(tmp_path, capsys):
+    """Both packages' bipartite CLIs on the same dyadic files: the same
+    index bytes, and the same recall, rderr, cmps and hops per L."""
+    paths = _dyadic_world(tmp_path)
+    for name, cli, extra in (("port", build_bipartite, CPU),
+                             ("jax", j_build_bipartite, [])):
+        assert cli.main([
+            "--base_data_path", paths["base"],
+            "--sampled_query_data_path", paths["train"],
+            "--learn_base_nn_path", paths["knn"],
+            "--bipartite_index_save_path", str(tmp_path / f"{name}.bip"),
+            "--M_sq", "12", "--M_pjbp", "12", "--base_row_cap", "16",
+            "--dist", "ip", *extra]) == 0
+    for suffix in ("", ".meta.json"):
+        assert _bytes(tmp_path / f"port.bip{suffix}") == \
+            _bytes(tmp_path / f"jax.bip{suffix}"), suffix
+    rows = {}
+    for name, cli, extra in (("port", search_bipartite, CPU),
+                             ("jax", j_search_bipartite, [])):
+        capsys.readouterr()
+        assert cli.main([
+            "--base_data_path", paths["base"], "--query_path", paths["eval"],
+            "--gt_path", paths["gt"],
+            "--bipartite_index_save_path", str(tmp_path / "port.bip"),
+            "--k", "10", "--L_pq", "8", "32", "64", "--query_batch", "64",
+            "--seed", "2", *extra]) == 0
+        rows[name] = _rows(capsys.readouterr().out)
+    assert len(rows["port"]) == 2                 # L=8 < k is skipped
+    assert _quality_cols(rows["port"]) == _quality_cols(rows["jax"])
+    assert float(rows["port"][-1][4]) > 0.6
+
+
+def test_ivf_clis_match_jax(tmp_path, capsys):
+    """build_ivf in each package, then search_ivf of each index in the
+    other package: the same recall, rderr and cmps per nprobe."""
+    rng = np.random.default_rng(9)
+    base = rng.standard_normal((3000, 24)).astype(np.float32)
+    evalq = rng.standard_normal((100, 24)).astype(np.float32)
+    gt_d, gt_i = j_knn(evalq, base, k=10, metric="ip", precision="highest")
+    tio.write_fbin(str(tmp_path / "base.fbin"), base)
+    tio.write_fbin(str(tmp_path / "eval.fbin"), evalq)
+    tio.write_gt_with_dist(str(tmp_path / "gt.bin"), gt_i.astype(np.uint32),
+                           gt_d)
+    for name, cli, extra in (("port", build_ivf, CPU), ("jax", j_build_ivf,
+                                                        [])):
+        assert cli.main([
+            "--base_data_path", str(tmp_path / "base.fbin"),
+            "--index_save_path", str(tmp_path / f"{name}.npz"),
+            "--n_clusters", "24", "--kmeans_iters", "3", "--store", "int8",
+            *extra]) == 0
+    rows = {}
+    for name, cli, extra, index in (("port", search_ivf, CPU, "jax"),
+                                    ("jax", j_search_ivf, [], "port")):
+        capsys.readouterr()
+        assert cli.main([
+            "--index_path", str(tmp_path / f"{index}.npz"),
+            "--base_data_path", str(tmp_path / "base.fbin"),
+            "--query_path", str(tmp_path / "eval.fbin"),
+            "--gt_path", str(tmp_path / "gt.bin"), "--k", "10",
+            "--nprobe", "2", "8", "64", "--rerank", "20",
+            "--query_batch", "100", *extra]) == 0
+        rows[name] = [ln.split() for ln in capsys.readouterr().out
+                      .splitlines() if ln.split()[:1] and
+                      ln.split()[0].isdigit()]
+    assert len(rows["port"]) == 2                 # nprobe 64 > 24 skipped
+    assert _quality_cols(rows["port"]) == _quality_cols(rows["jax"])
+    assert float(rows["port"][-1][4]) > 0.7
+    # the metric is baked into the index: both CLIs refuse an override
+    for cli, extra in ((search_ivf, CPU), (j_search_ivf, [])):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["--index_path", str(tmp_path / "port.npz"),
+                      "--query_path", str(tmp_path / "eval.fbin"),
+                      "--gt_path", str(tmp_path / "gt.bin"),
+                      "--dist", "l2", *extra])
+        assert e.value.code == 2
+        assert "conflicts with the index" in capsys.readouterr().err
+
+
+def test_data_clis_match_jax(tmp_path, capsys):
+    assert prepare_data.main(["--list"]) == 0
+    port_out = capsys.readouterr().out
+    assert j_prepare_data.main(["--list"]) == 0
+    assert port_out == capsys.readouterr().out
+    assert "t2i-10M" in port_out and "webvid-2.5M" in port_out
+    rng = np.random.default_rng(4)
+    npys = []
+    for i, n in enumerate((5, 9)):
+        npys.append(str(tmp_path / f"v{i}.npy"))
+        np.save(npys[-1], rng.normal(size=(n, 8)))
+    for flags in (["--pool_videos"], ["--normalize"], []):
+        for name, cli in (("port", export_fbin), ("jax", j_export_fbin)):
+            assert cli.main(["--npy", *npys, "--out",
+                             str(tmp_path / f"{name}.fbin"), *flags]) == 0
+        assert _bytes(tmp_path / "port.fbin") == \
+            _bytes(tmp_path / "jax.fbin"), flags
+    assert tio.read_fbin(str(tmp_path / "port.fbin")).shape == (14, 8)

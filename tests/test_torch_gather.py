@@ -135,3 +135,40 @@ def test_kernel_fused_byte_rows(cuda_device, row_bytes):
     torch.cuda.synchronize()
     assert torch.equal(got, tg.gather_rows_ref(table, idx))
     assert tg.error_flag_value() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n_idx", [
+    (torch.float32, 4), (torch.float32, 64), (torch.int8, 4),
+    (torch.int8, 64), (torch.uint8, 7)])
+def test_kernel_ivf_block_rows(cuda_device, dtype, n_idx):
+    """The IVF index's cluster blocks: fat rows ([cap, d] per row, here
+    [800, 128]: 409.6 KB f32, 102.4 KB int8) take the segmented path; bit
+    for bit against index_select. The uint8 case has an odd width (a row of
+    9,001 bytes, single-byte words)."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(4)
+    shape = (300, 9001) if dtype == torch.uint8 else (300, 800, 128)
+    table = torch.randint(-100, 100, shape, generator=g, device=cuda_device,
+                          dtype=torch.int32).to(dtype)
+    idx = torch.randint(0, shape[0], (n_idx,), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    idx[0] = shape[0] - 1
+    before = tg.launches
+    got = tg.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert tg.launches == before + 1
+    assert torch.equal(got, tg.gather_rows_ref(table, idx))
+    assert tg.error_flag_value() == 0
+
+
+@pytest.mark.cuda
+def test_kernel_fat_row_out_of_range(cuda_device):
+    table = torch.ones((10, 64, 128), device=cuda_device)
+    out = tg.gather_rows(table, torch.tensor([3, 10, 9], device=cuda_device,
+                                             dtype=torch.int32))
+    torch.cuda.synchronize()
+    assert tg.error_flag_value() == 1
+    assert bool((out[1] == 0).all()) and bool((out[0] == 1).all())
+    assert bool((out[2] == 1).all())
+    tg.reset_error_flag()
