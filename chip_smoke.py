@@ -3,9 +3,11 @@ time both hand-written kernels (the row gather K1 and the binned scan K2),
 drive the RoarGraph build-then-search path once at full width, then the
 flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
-index, the IVF index and seven CLIs on the same world.
+index, the IVF index and seven CLIs on the same world; then the worlds
+larger than 1M: the build's slab paths at 4M rows, a 4M x 128 build and
+seeded fused serving, and the index-keyed device corpus at 10M rows.
 
-    python3 chip_smoke.py     # 1M x 128 base, 200k train queries, one card
+    python3 chip_smoke.py     # 1M, 4M and 10M x 128 worlds, one card
 
 Phases, one line each before the last:
   1. device: the card's name and power limit (there is no CPU fallback);
@@ -42,8 +44,9 @@ Phases, one line each before the last:
      both times; fails unless the library loaded;
  10. bipartite: scripts/bench_bipartite.py's recipe (M_pjbp=32,
      base_row_cap=64) and two-hop BipartiteSearcher at L = 50, 100, 200,
-     400 over one 4,096-query batch of the eval queries; recall must not
-     fall as L rises and must reach 0.5 at L=400; the time per hop and a
+     400 over one 4,096-query batch of the eval queries (reduced to
+     L = 50, 200 to make room for the larger worlds); recall must not fall
+     as L rises and must reach 0.5 at the last L; the time per hop and a
      profiler split of a batch's first 8 hops;
  11. ivf: IVFIndex with its defaults (2,000 clusters at 1M), f32 then int8
      + keep_f32; grouped search at nprobe 16 / 64 / 128 (int8 with rerank
@@ -55,7 +58,28 @@ Phases, one line each before the last:
  12. cli: the port's compute_gt, search_flat (int8) and search_roargraph
      (--engine fused, seeded) CLIs through their main() on the same world
      written as .fbin files; then export_fbin, build_bipartite →
-     search_bipartite and build_ivf → search_ivf on a 200k-row slice.
+     search_bipartite and build_ivf → search_ivf on a 200k-row slice;
+ 13. large_fold: at n = 4M, W = 64, M = 32, a seeded ragged supply and one
+     round's chunk lists: the single fold against _fold_own_rows +
+     _fold_slab + _rev_rows_for_ids, and the device reverse aggregation
+     against the host one, bit for bit, with both times and peak memory;
+ 14. large_build: scripts/torch_bench_4m_fused.py's world and recipe at
+     4M x 128 through build_roargraph with engine "auto" (one phase-D pass
+     instead of the script's two and 200k of its 400k train queries, for
+     time): the memory plan's choices and bytes, the per-phase split, peak
+     memory, degrees, reachability, K1 launches; then seeded FusedSearcher
+     rows (int4, max_degree 32) over 8,192 eval queries against exact
+     ground truth, one row >= 0.90; large_k1: K1 against index_select, bit
+     for bit, on the 4M base, on tables of the supply's ([4M, 64] i32) and
+     the phase-D byte rows' ([4M+1, 4608] u8) shapes and on the serving
+     table itself, with both times;
+ 15. device_world: CrossModalDeviceSpec on the card — the same indices in
+     two batch shapes and against the CPU, the generation rate — then
+     scripts/torch_bench_50m.py's pipeline at 10M rows: streamed exact
+     ground truth for 4,096 queries, build_ivf_streaming (int8) from
+     generated tiles, K1 against index_select on that index's int8 blocks
+     (C = 4 and 64), grouped search at two nprobes reranked from
+     regenerated rows, an exactness gate at nprobe = n_clusters.
 Then a JSON line with the kernels' records, and last a JSON line with the
 device. Any failed check exits non-zero before the last line is printed.
 """
@@ -63,6 +87,7 @@ device. Any failed check exits non-zero before the last line is printed.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
@@ -108,17 +133,33 @@ SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
 TARGET_RECALL = 0.95
 # scripts/bench_bipartite.py's 1M recipe and sweep
 BIPARTITE_CFG = dict(M_sq=64, M_pjbp=32, metric=METRIC)
-BIPARTITE_CAP, BIPARTITE_LS, BIPARTITE_QB = 64, (50, 100, 200, 400), 4096
+# the script sweeps L = 50, 100, 200, 400; here two of them, for time
+BIPARTITE_CAP, BIPARTITE_LS, BIPARTITE_QB = 64, (50, 200), 4096
+BIPARTITE_REDUCED = "L = 50, 200 of the script's 50, 100, 200, 400"
 # the two-hop loop is host-bound (~1.9 ms per hop-2 chunk merge): the sweep
 # serves one 4,096-query batch per L, and the CLI slice 2,048 queries
 BIPARTITE_QUERIES, CLI_BIPARTITE_QUERIES = 4096, 2048
-BIPARTITE_FLOOR = 0.5     # recall@10 at L=400: against a broken search
+BIPARTITE_FLOOR = 0.5     # recall@10 at the last L: against a broken search
 IVF_NPROBES = (16, 64, 128)
 IVF_RERANK = 20
 # recall@10 at nprobe = n_clusters (every cluster scanned): f32 is exact;
 # int8 reranks a 20-row head in f32
 IVF_EXACT_FLOORS = {"f32": 0.999, "int8": 0.99}
 CLI_SLICE = 200_000
+# the larger worlds: the 4M fold and build, the 10M device corpus
+LARGE_N, LARGE_TRAIN, LARGE_EVAL = 4_000_000, 200_000, 8192
+LARGE_PASSES = 1
+LARGE_REDUCED = ("1 phase-D pass of the script's 2; 200,000 of its 400,000 "
+                 "train queries (their exact kNN is half the set-up); 8,192 "
+                 "of its 32,768 eval queries; one timed batch per row")
+# (seeds, L) rows of the 4M sweep at max_degree 32, int4, a 1-in-2 sample
+LARGE_SWEEP = ((40, 56), (40, 112), (48, 112), (48, 144), (48, 224))
+LARGE_RECALL_FLOOR = 0.90   # one row must reach it: against a broken search
+WORLD_N, WORLD_EVAL, WORLD_TILE = 10_000_000, 4096, 1 << 20
+WORLD_NPROBES, WORLD_RERANK, WORLD_GATE_QUERIES = (32, 128), 100, 256
+WORLD_REDUCED = ("10M of the script's 50M rows; 4,096 of its 16,384 queries; "
+                 "nprobe 32, 128 of its 32, 64, 128, 256; no flat-int8 table")
+WORLD_ROW_ATOL = 2e-6     # rows across batch shapes / devices (unit norm)
 
 
 def fail(msg: str) -> None:
@@ -131,7 +172,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(tag: str, **fields) -> None:
+    """One line per phase; ``at_s`` is the script's clock when it printed."""
+    fields["at_s"] = round(time.perf_counter() - T_START, 1)
     print(f"[{tag}] " + json.dumps(fields), flush=True)
 
 
@@ -327,6 +373,44 @@ def kernel_fused_rows(gather, dev, n_rows: int = 1_000_001,
           "the gather kernel met an out-of-range index (byte rows)")
     phase("kernel_fused_rows", bit_identical=True, timings=timings)
     return timings
+
+
+def k1_on_table(gather, table: torch.Tensor, tag: str, n_idx: int = 32768,
+                seed: int = 21) -> dict:
+    """K1 against its plain version on a table a larger-world path holds
+    (or one of its shape): ``n_idx`` seeded indices with row 0 and the last
+    row among them, bit for bit; median ms of both and the HBM bound."""
+    g = torch.Generator(device=table.device)
+    g.manual_seed(seed)
+    idx = torch.randint(0, table.shape[0], (n_idx,), generator=g,
+                        device=table.device, dtype=torch.int32)
+    idx[0], idx[-1] = 0, table.shape[0] - 1
+    got = gather.gather_rows(table, idx)
+    want = gather.gather_rows_ref(table, idx)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype
+          and torch.equal(got, want),
+          f"K1 differs from index_select on {tag} "
+          f"{list(table.shape)} {table.dtype}")
+    del got, want
+    row_bytes = table[0].numel() * table.element_size()
+    return {"table": list(table.shape),
+            "dtype": str(table.dtype).split(".")[-1], "rows": n_idx,
+            "row_bytes": row_bytes, "bit_identical": True,
+            "kernel_ms": time_ms(lambda: gather.gather_rows(table, idx)),
+            "plain_ms": time_ms(lambda: gather.gather_rows_ref(table, idx)),
+            "bound_ms": (2 * n_idx * row_bytes + 4 * n_idx)
+            / HBM_BYTES_S * 1e3}
+
+
+def random_bytes(shape, dev, seed: int) -> torch.Tensor:
+    """A seeded uint8 table, filled in slabs of under 2^31 elements."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    table = torch.empty(shape, dtype=torch.uint8, device=dev)
+    for slab in table.split(max(1, (1 << 30) // shape[1])):
+        slab.random_(0, 256, generator=g)
+    return table
 
 
 def reachable_all(neighbors: np.ndarray, ep: int) -> bool:
@@ -760,7 +844,8 @@ def bipartite_path(port, gather, world: dict) -> int:
     s = port.BipartiteSearcher(index, base_dev)
     chunk = s.auto_two_hop_chunk(BIPARTITE_QB, base_dev.shape[1])
     phase("bipartite_build", seconds=t_build,
-          shape=list(index.neighbors.shape), two_hop_chunk=chunk)
+          shape=list(index.neighbors.shape), two_hop_chunk=chunk,
+          reduced=BIPARTITE_REDUCED)
     s.search(eval_q[:64], K, BIPARTITE_LS[0], device_out=True)   # warm-up
     rows = []
     # K1's count covers the L sweep through BipartiteSearcher and nothing
@@ -826,6 +911,7 @@ def ivf_k1_blocks(gather, index) -> dict:
         idxs = [torch.randint(0, blocks.shape[0], (C,), generator=g,
                               device=blocks.device, dtype=torch.int32)
                 for _ in range(20)]
+        idxs[0][0], idxs[0][-1] = 0, blocks.shape[0] - 1
         for idx in idxs[:2]:
             got = gather.gather_rows(blocks, idx)
             want = gather.gather_rows_ref(blocks, idx)
@@ -1105,6 +1191,307 @@ def cli_slice_path(world: dict, gather, tmp_root: str = HERE) -> int:
     return l_bip + l_ivf
 
 
+def _script(name: str):
+    """A benchmark script under scripts/, imported by path."""
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(name)[0], os.path.join(HERE, "scripts", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def large_fold(dev, n: int = LARGE_N, W: int = 64, M: int = 32,
+               rounds: int = 16, n_edges: int = 12_800_000) -> dict:
+    """Phase 13: the bounded-memory fold and the host reverse aggregation
+    against the single-fold / device paths, bit for bit, at 4M rows."""
+    from mysteryann_tpu_torch.graph import roargraph as rg
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    chunk = -(-n // rounds)
+    r0 = 5 * chunk
+    supply = torch.randint(0, n, (n, W), generator=g, device=dev,
+                           dtype=torch.int32)
+    deg = torch.randint(0, W, (n, 1), generator=g, device=dev)
+    supply = torch.where(torch.arange(W, device=dev)[None, :] < deg, supply,
+                         n).contiguous()
+    del deg
+    # ~1% sentinel entries, as a pruned list that came up short has
+    lists = torch.randint(0, n + n // 100, (chunk, M), generator=g,
+                          device=dev, dtype=torch.int32)
+
+    def timed(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, (
+            torch.cuda.max_memory_allocated() / 2**30 - base_gib)
+
+    (a_supply, a_rev, a_fit), t_single, peak_single = timed(
+        lambda: rg._fold_round_device(supply.clone(), lists, r0))
+    over = torch.nonzero(~a_fit)[:, 0].to(torch.int32)
+    want_rev = a_rev[over.long()]
+    del a_rev
+    slab_rows = 1 << 20
+
+    def slab_fold():
+        b = rg._fold_own_rows(supply.clone(), lists, r0)
+        fits = []
+        for lo in range(0, n, slab_rows):
+            b, fit = rg._fold_slab(b, lists, r0, lo, slab_rows)
+            fits.append(fit)
+        fit = torch.cat(fits)
+        ids = torch.nonzero(~fit)[:, 0].to(torch.int32)
+        return b, fit, rg._rev_rows_for_ids(lists, r0, ids, n, W)
+
+    (b_supply, b_fit, b_rev), t_slab, peak_slab = timed(slab_fold)
+    same = {"supply": torch.equal(a_supply, b_supply),
+            "fit": torch.equal(a_fit, b_fit),
+            "overflow_rev_rows": torch.equal(want_rev, b_rev)}
+    n_over = int(over.shape[0])
+    del a_supply, b_supply, a_fit, b_fit, want_rev, b_rev, supply, lists
+
+    # reverse aggregation: phase B+C's edge count at 4M rows and 400k train
+    # queries, distances quantized so that ties are common
+    e_src = torch.randint(0, n, (n_edges,), generator=g, device=dev)
+    e_dst = torch.randint(0, n, (n_edges,), generator=g, device=dev)
+    e_dist = (torch.randint(0, 4096, (n_edges,), generator=g, device=dev)
+              .float() / 64)
+    r_max = 3 * M
+    dev_rev, t_dev, peak_dev = timed(lambda: rg._aggregate_reverse_device(
+        e_src.to(torch.int32), e_dst.to(torch.int32), e_dist, n=n,
+        r_max=r_max))
+    t0 = time.perf_counter()
+    host_rev = rg._aggregate_reverse(e_src.cpu().numpy(), e_dst.cpu().numpy(),
+                                     e_dist.cpu().numpy(), n, r_max)
+    t_host = time.perf_counter() - t0
+    same["reverse_aggregation"] = torch.equal(
+        dev_rev, torch.from_numpy(host_rev).to(dev))
+    del dev_rev, host_rev, e_src, e_dst, e_dist
+    torch.cuda.empty_cache()
+    phase("large_fold", n=n, W=W, M=M, chunk_rows=chunk, overflow_rows=n_over,
+          slab_rows=slab_rows, bit_identical=same,
+          single_fold_s=t_single, slab_fold_s=t_slab,
+          single_fold_peak_gib=peak_single, slab_fold_peak_gib=peak_slab,
+          edges=n_edges, aggregate_device_s=t_dev, aggregate_host_s=t_host,
+          aggregate_device_peak_gib=peak_dev)
+    check(all(same.values()), f"the bounded-memory paths differ: {same}")
+    check(n_over > 0, "no row overflowed in the 4M fold: the case is empty")
+    return same
+
+
+def large_build(port, gather, dev) -> int:
+    """Phase 14: the 4M world of scripts/torch_bench_4m_fused.py, built with
+    engine "auto" and served by seeded FusedSearcher. Returns K1 launches."""
+    from mysteryann_tpu_torch.graph.roargraph import (_build_memory_plan,
+                                                      device_memory)
+    from mysteryann_tpu_torch.search.fused import _row_bytes
+    from mysteryann_tpu_torch.utils.trace import tracer
+
+    drv = _script("torch_bench_4m_fused.py")
+    n = LARGE_N
+    t0 = time.perf_counter()
+    base, train_q, eval_q = drv.make_world(n, LARGE_TRAIN, LARGE_EVAL, DIM)
+    t_data = time.perf_counter() - t0
+    base_dev = port.prepare_vectors(base, METRIC, dev)
+    del base
+    t0 = time.perf_counter()
+    gt_d, gt_i = port.exact_knn(eval_q, base_dev, k=K, metric=METRIC,
+                                query_batch=4096, base_tile=131072,
+                                precision="highest")
+    t_gt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, knn = port.exact_knn(train_q, base_dev, k=drv.M_SQ, metric=METRIC,
+                            query_batch=8192, base_tile=131072)
+    t_knn = time.perf_counter() - t0
+    phase("large_data", n_base=n, n_train=LARGE_TRAIN, n_eval=LARGE_EVAL,
+          dim=DIM, data_s=t_data, gt_s=t_gt, train_knn_s=t_knn,
+          reduced=LARGE_REDUCED)
+
+    cfg = drv.build_config(LARGE_PASSES, "auto")
+    plan = _build_memory_plan(cfg, n, DIM, device_memory(dev))
+    phase("large_plan", engine=plan.engine, fold=plan.fold,
+          slab_rows=plan.slab_rows, memory_gb=plan.memory / 1e9,
+          bytes_gb={k: v / 1e9 for k, v in plan.bytes.items()})
+    tr = tracer()
+    tr.reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gather.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = port.build_roargraph(base_dev, train_q, knn, cfg, verbose=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_launches = gather.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spans = tr.summary()["spans"]
+    st = index.graph.degree_stats()
+    reach = reachable_all(index.graph.neighbors, index.graph.ep)
+    flag = gather.error_flag_value()
+    phase("large_build", engine=plan.engine, fold=plan.fold,
+          passes=LARGE_PASSES, seconds=t_build,
+          phases_s={k: v["total_s"] for k, v in spans.items()},
+          degree=st, all_reachable=reach, k1_launches=build_launches,
+          error_flag=flag, peak_gb=peak, reduced=LARGE_REDUCED)
+    check(build_launches > 0, "the 4M build launched K1 0 times")
+    check(flag == 0, "the gather kernel met an out-of-range index (4M build)")
+    check(st["zero"] == 0, f"4M build: {st['zero']} zero-degree nodes")
+    check(st["max"] <= 2 * cfg.M_pjbp,
+          f"4M build: max degree {st['max']} > {2 * cfg.M_pjbp}")
+    check(reach, "4M build: not every node is reachable")
+    index.graph.validate()
+    del knn, train_q
+
+    # K1 against its plain version at the shapes this build gave it: the
+    # live f32 base, and tables of the supply's and the phase-D byte rows'
+    # shapes (the build frees its own before it returns)
+    torch.cuda.empty_cache()
+    W = 2 * cfg.M_pjbp
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    k1 = {"base_f32": k1_on_table(gather, base_dev, "the 4M base", 65536)}
+    supply = torch.randint(0, n + 1, (n, W), generator=g, device=dev,
+                           dtype=torch.int32)
+    k1["supply_i32"] = k1_on_table(gather, supply, "4M supply rows", 65536)
+    del supply
+    table = random_bytes((n + 1, _row_bytes(W, DIM, cfg.connectivity_bits)),
+                         dev, 14)
+    k1["build_rows_u8"] = k1_on_table(gather, table, "4M phase-D byte rows")
+    del table
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gather.reset_launches()
+    fs = port.FusedSearcher(index, base_dev, max_degree=32, seed_sample=2,
+                            bits=4)
+    rows = []
+    for seeds, L in LARGE_SWEEP:
+        r = fs.benchmark(eval_q, k=K, L=L, query_batch=8192, expand=4,
+                         seeds=seeds, warmup=1)
+        check(np.isfinite(r["dists"]).all()
+              and r["ids"].shape == (eval_q.shape[0], K),
+              f"4M fused L={L}: results not finite / wrong shape")
+        row = {"seeds": seeds, "L_pq": L, "qps": r["qps"],
+               "recall@10": port.compute_recall(r["ids"], gt_i, K),
+               "rderr": port.compute_rderr(r["dists"], gt_d, K, METRIC),
+               "avg_hops": r["avg_hops"]}
+        rows.append(row)
+        phase("large_serve", **row)
+    serve_launches = gather.launches
+    k1["serve_rows_u8"] = k1_on_table(gather, fs.table,
+                                      "the 4M serving table")
+    phase("large_k1", **k1)
+    best = max(r["recall@10"] for r in rows)
+    phase("large_serve_summary", k1_launches=serve_launches,
+          best_recall=best, table_gb=fs.table.numel() / 1e9,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(serve_launches > 0, "4M fused serving launched K1 0 times")
+    check(best >= LARGE_RECALL_FLOOR,
+          f"no 4M fused row reached recall@10 >= {LARGE_RECALL_FLOOR} "
+          f"(best {best:.4f})")
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (4M serving)")
+    del fs, index, base_dev
+    torch.cuda.empty_cache()
+    return build_launches + serve_launches
+
+
+def device_world(port, gather, dev, n: int = WORLD_N) -> int:
+    """Phase 15: the index-keyed corpus on the card, then the 50M script's
+    pipeline at 10M rows. Returns the K1 launches of the IVF searches."""
+    from mysteryann_tpu_torch.io.synthetic import CrossModalDeviceSpec
+
+    drv = _script("torch_bench_50m.py")
+    spec = drv.make_spec(DIM, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    idx = torch.randint(0, 50_000_000, (100_000,), generator=g, device=dev,
+                        dtype=torch.int32)
+    whole, cid = spec.rows(idx), spec.concept_ids(idx)
+    parts = torch.cat([spec.rows(c) for c in idx.split(7_777)])
+    cid_parts = torch.cat([spec.concept_ids(c) for c in idx.split(7_777)])
+    shape_err = float((whole - parts).abs().max())
+    cpu = CrossModalDeviceSpec(DIM, metric="ip", seed=drv.SEED, device="cpu",
+                               **drv.WORLD)
+    few = idx[:4096]
+    cpu_same = torch.equal(cpu.concept_ids(few.cpu()), cid[:4096].cpu())
+    cpu_err = float((cpu.rows(few.cpu()) - whole[:4096].cpu()).abs().max())
+    norm_err = float((whole.norm(dim=1) - 1).abs().max())
+    t_gen = time_ms(lambda: spec.base_tile(0, WORLD_TILE), reps=1, trials=3)
+    phase("device_world", draws="threefry2x32, jax.random key layout",
+          concept_ids_same_across_shapes=torch.equal(cid, cid_parts),
+          rows_max_abs_diff_across_shapes=shape_err,
+          concept_ids_same_as_cpu=cpu_same, rows_max_abs_diff_vs_cpu=cpu_err,
+          norm_err=norm_err, tile_rows=WORLD_TILE, tile_ms=t_gen,
+          rows_per_s=WORLD_TILE / t_gen * 1e3)
+    check(torch.equal(cid, cid_parts) and cpu_same,
+          "concept ids depend on the batch shape or the device")
+    check(shape_err <= WORLD_ROW_ATOL and cpu_err <= WORLD_ROW_ATOL,
+          f"generated rows differ across shapes ({shape_err}) or from the "
+          f"CPU ({cpu_err}) by more than {WORLD_ROW_ATOL}")
+    check(norm_err <= 1e-5, f"generated rows are not unit norm ({norm_err})")
+    del whole, parts, cid, cid_parts
+
+    eval_q = spec.queries(WORLD_EVAL)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bd, bi = drv.streamed_gt(spec, eval_q, n, WORLD_TILE)
+    torch.cuda.synchronize()
+    t_gt = time.perf_counter() - t0
+    gt_i, gt_d = bi.cpu().numpy().astype(np.int64), bd.cpu().numpy()
+    check(np.isfinite(gt_d).all() and (gt_i < n).all() and (gt_i >= 0).all(),
+          "streamed ground truth not finite / ids out of range")
+    t0 = time.perf_counter()
+    index = port.build_ivf_streaming(spec.base_tile, n, DIM, metric=METRIC,
+                                     tile=WORLD_TILE, seed=drv.SEED,
+                                     rows_fn=spec.rows, verbose=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    phase("device_world_build", n=n, gt_queries=WORLD_EVAL, gt_s=t_gt,
+          ivf_build_s=t_build, n_clusters=index.n_clusters, cap=index.cap,
+          blocks=list(index.blocks.shape),
+          waste=index.n_clusters * index.cap / n,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+          reduced=WORLD_REDUCED)
+    # K1 against its plain version on this index's own blocks, C = 4 and 64
+    phase("device_world_k1", blocks=list(index.blocks.shape),
+          bit_identical=True, timings=ivf_k1_blocks(gather, index))
+    gather.reset_launches()
+    rows = []
+    for nprobe in WORLD_NPROBES:
+        row = drv.bench(drv.ivf_search_fn(index, spec, n, nprobe,
+                                          WORLD_RERANK),
+                        eval_q, WORLD_EVAL, f"ivf_i8_p{nprobe}", gt_i, gt_d)
+        rows.append(row)
+        phase("device_world_ivf", nprobe=nprobe, rerank=WORLD_RERANK, **row)
+    launches = gather.launches
+    gate = drv.ivf_search_fn(index, spec, n, index.n_clusters, WORLD_RERANK)
+    ids, dists = gate(eval_q[:WORLD_GATE_QUERIES])
+    exact = port.compute_recall(ids.cpu().numpy().astype(np.int64),
+                                gt_i[:WORLD_GATE_QUERIES], K)
+    phase("device_world_exact", nprobe=index.n_clusters,
+          queries=WORLD_GATE_QUERIES, rerank=WORLD_RERANK,
+          **{"recall@10": exact}, k1_launches=launches,
+          error_flag=gather.error_flag_value())
+    check(launches > 0, "the 10M IVF searches launched K1 0 times")
+    check(exact >= IVF_EXACT_FLOORS["int8"],
+          f"10M ivf-int8 at nprobe = n_clusters: recall@10 {exact:.4f} < "
+          f"{IVF_EXACT_FLOORS['int8']}")
+    check(rows[-1]["recall"] >= rows[0]["recall"],
+          f"10M IVF recall falls as nprobe rises: {rows}")
+    check(gather.error_flag_value() == 0,
+          "the gather kernel met an out-of-range index (device world)")
+    index.free()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -1144,14 +1531,20 @@ def main() -> None:
     k1_bip = bipartite_path(port, gather, run)
     ivf = ivf_path(port, gather, run)
     k1_cli = cli_path(run, gather, fused["index"])
+    run_launches, fused_launches = run["launches"], fused["k1_launches"]
+    del run, fused      # the 1M world makes room for the larger ones
+    torch.cuda.empty_cache()
+    large_fold(dev)
+    k1_large = large_build(port, gather, dev)
+    k1_world = device_world(port, gather, dev)
     phase("smoke", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
-         "launches": (run["launches"] + flat["k1_launches"]
-                      + fused["k1_launches"] + k1_bip + ivf["k1_launches"]
-                      + k1_cli),
+         "launches": (run_launches + flat["k1_launches"]
+                      + fused_launches + k1_bip + ivf["k1_launches"]
+                      + k1_cli + k1_large + k1_world),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},

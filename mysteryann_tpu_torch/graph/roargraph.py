@@ -32,15 +32,25 @@ regardless of metric (CalculateProjectionep:2004-2041).
 
 What the port takes: both phase-D engines — classic (the f32 lockstep
 beam) and fused (quantized neighbour-block byte rows, search/fused.py) —
-with the single fold at every N, and persistence through the native host
-library (``native``, g++-built at first use) with the numpy path as its
-plain version (byte-identical files either way). The slab fold that exists
-for 16 GB chips and the host reverse-aggregation and projection paths are
-not ported (ROADMAP.md). Tensors are updated in
-place where the JAX package donated its buffers; the supply graph is a
-fresh copy that never aliases the projection it starts from. Every row of
-every batched step is independent of the other rows, so batches are cut
-to whatever size fits and never padded.
+and persistence through the native host library (``native``, g++-built at
+first use) with the numpy path as its plain version (byte-identical files
+either way).
+
+Memory: `_build_memory_plan` reckons, from the corpus shape and the total
+memory of the device the base lives on, what a build holds at once, and
+chooses two things by it — the phase-D engine that ``"auto"`` stands for,
+and whether the build runs its bounded-memory paths: host reverse
+aggregation in phase B+C, the fold in row slabs (`_fold_own_rows`,
+`_fold_slab`, `_rev_rows_for_ids`), the projection kept on the host with
+per-batch uploads, and a slabbed tail with the pass's result on the host.
+Each of those is bit-identical to the path it replaces, so a graph never
+depends on the plan; only memory and time do. On a CPU device the plan
+keeps the JAX package's fixed thresholds.
+
+Tensors are updated in place where the JAX package donated its buffers;
+the supply graph is a fresh copy that never aliases the projection it
+starts from. Every row of every batched step is independent of the other
+rows, so batches are cut to whatever size fits and never padded.
 """
 
 from __future__ import annotations
@@ -284,6 +294,24 @@ def compute_medoid(base: torch.Tensor) -> int:
     return int(torch.argmin(d))
 
 
+def _aggregate_reverse(e_src: np.ndarray, e_dst: np.ndarray,
+                       e_dist: np.ndarray, n: int, r_max: int) -> np.ndarray:
+    """Group reverse edges by destination, closest-first, into a
+    sentinel(n)-padded int32 [n, r_max], on the host: the bounded-memory
+    twin of `_aggregate_reverse_device` (np.lexsort is stable, as the
+    device sort is, so the two agree bit for bit)."""
+    order = np.lexsort((e_dist, e_dst))
+    ds, ss = e_dst[order], e_src[order]
+    counts = np.bincount(ds, minlength=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    rank = np.arange(ds.size, dtype=np.int64) - offsets[ds]
+    keep = rank < r_max
+    out = np.full((n, r_max), n, np.int32)
+    out[ds[keep], rank[keep]] = ss[keep]
+    return out
+
+
 def _aggregate_reverse_device(e_src, e_dst, e_dist, n: int, r_max: int):
     """Group reverse edges by destination, closest-first, into a
     sentinel(n)-padded int32 [n, r_max]: a (dst, dist)-stable sort, ranks
@@ -347,26 +375,120 @@ def _batched_prune_rows(
 
 def _budget_row_bytes(M: int, d: int, bits: int = 8) -> int:
     """The JAX package's fused table row size — this package's row padded
-    to a multiple of 1 KB for the TPU's DMA tiling. Only the
-    ``connectivity_engine="auto"`` rule reads it, so that "auto" resolves
-    alike in both packages."""
+    to a multiple of 1 KB for the TPU's DMA tiling. Read only by the CPU
+    branch of `_build_memory_plan`, so that on the CPU "auto" resolves as
+    in the JAX package."""
     return -(-_row_bytes(M, d, bits) // 1024) * 1024
 
 
-def _resolve_engine(cfg, n: int, d: int) -> str:
-    """Resolve connectivity_engine='auto' for corpus (n, d) by the JAX
-    package's rule: fused when dims sit on the byte-row boundary and the
-    table fits a 10 GB budget — one shared rule, so the checkpoint tag and
-    the pass itself cannot disagree."""
+# share of a device's total memory that the build's resident tensors may
+# take; the rest is the working set of a search / prune batch (the prune
+# alone takes up to 1/8 of what is free), the packer's block temporaries
+# and the allocator's fragmentation
+_RESIDENT_SHARE = 0.8
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildMemoryPlan:
+    """What `_build_memory_plan` chose: ``engine`` is the phase-D engine
+    ("auto" resolved), ``large`` says whether the bounded-memory paths run,
+    ``slab_rows`` is the fold's slab height under ``large``, ``memory`` is
+    the device memory reckoned against (None: the CPU's fixed thresholds)
+    and ``bytes`` holds the terms of the sum."""
+    engine: str
+    large: bool
+    slab_rows: int
+    memory: Optional[int]
+    bytes: dict
+
+    @property
+    def fold(self) -> str:
+        return "slab" if self.large else "single"
+
+
+def device_memory(device: torch.device) -> Optional[int]:
+    """The memory a build on ``device`` is planned against: a CUDA device's
+    total memory (not what is free at the moment: the same card then plans
+    the same build), else None (a CPU device: the JAX package's
+    thresholds)."""
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return None
+
+
+def _build_memory_plan(cfg, n: int, d: int,
+                       mem: Optional[int] = None) -> BuildMemoryPlan:
+    """Choose the phase-D engine and the fold path for corpus (n, d) on a
+    device with ``mem`` bytes in total — one shared rule, so the
+    checkpoint tag and the pass itself cannot disagree.
+
+    With M = cfg.M_pjbp, W = 2M (the supply width) and int32 ids, phase D
+    on the single-fold path holds at once
+
+        base          4·n·d
+        supply        4·n·W
+        projection    4·n·W      (it is [n, 2M] between passes)
+        fold scratch  2·4·n·W    (the [n, W] reverse lists and as much
+                                  again for the edge sort and the merge)
+      and, fused engine only,
+        table         (n + 1)·(w16·d·bits/8 + 8·w16),  w16 = ⌈W/16⌉·16
+        snapshot      4·n·W      (the supply the table was packed from)
+
+    against ``_RESIDENT_SHARE`` (0.8) of ``mem``. The bounded-memory
+    paths keep the projection on the host and cut the fold scratch to
+    2·4·slab_rows·W, with the slab scratch held to mem/32; ``large`` is
+    set when the single-fold sum of the chosen engine does not fit.
+    "auto" is fused when the dims sit on the byte-row boundary and the
+    fused sum fits at least on the bounded-memory paths, else classic.
+    At n = 4M, d = 128, M = 32, bits 4 the terms are 2.05 + 1.02 + 1.02 +
+    2.05 GB and 18.43 + 1.02 GB: 25.6 GB, fused and single fold on an
+    80 GB card, classic on a 16 GB one.
+
+    ``mem=None`` (a CPU device) keeps the JAX package's fixed rule — fused
+    when its 1 KB-padded table is within 10 GB, the bounded-memory paths
+    from 4M rows — so that both packages choose alike where they are
+    compared.
+    """
+    M = cfg.M_pjbp
+    W = 2 * M
+    bits = cfg.connectivity_bits
+    w16 = -(-W // 16) * 16
+    dims_ok = d % (8 if bits == 8 else 16) == 0
+    b = {"base": 4 * n * d, "supply": 4 * n * W, "projection": 4 * n * W,
+         "fold_scratch": 8 * n * W,
+         "table": (n + 1) * _row_bytes(w16, d, bits),
+         "table_snapshot": 4 * n * W}
     engine = cfg.connectivity_engine
+    if mem is None:
+        if engine == "auto":
+            engine = ("fused" if dims_ok and (n + 1) * _budget_row_bytes(
+                w16, d, bits) <= 10e9 else "classic")
+        n_slabs = max(2, -(-b["fold_scratch"] // (26 * 10 ** 8)))
+        return BuildMemoryPlan(engine, n >= 4_000_000, -(-n // n_slabs),
+                               None, b)
+    budget = int(_RESIDENT_SHARE * mem)
+    n_slabs = max(2, -(-b["fold_scratch"] // max(1, mem // 32)))
+    slab_rows = min(n, max(1024, -(-n // n_slabs)))
+    b["slab_scratch"] = 8 * slab_rows * W
+    single = {"classic": b["base"] + b["supply"] + b["projection"]
+              + b["fold_scratch"]}
+    single["fused"] = single["classic"] + b["table"] + b["table_snapshot"]
+    bounded = {e: v - b["projection"] - b["fold_scratch"] + b["slab_scratch"]
+               for e, v in single.items()}
     if engine == "auto":
-        dim_mult = 8 if cfg.connectivity_bits == 8 else 16
-        w16 = -(-2 * cfg.M_pjbp // 16) * 16
-        engine = ("fused" if d % dim_mult == 0
-                  and (n + 1) * _budget_row_bytes(w16, d,
-                                                  cfg.connectivity_bits)
-                  <= 10e9 else "classic")
-    return engine
+        engine = ("fused" if dims_ok and bounded["fused"] <= budget
+                  else "classic")
+    b["resident_single"] = single[engine]
+    b["resident_bounded"] = bounded[engine]
+    b["budget"] = budget
+    return BuildMemoryPlan(engine, single[engine] > budget, slab_rows,
+                           int(mem), b)
+
+
+def _resolve_engine(cfg, n: int, d: int, mem: Optional[int] = None) -> str:
+    """``cfg.connectivity_engine`` with "auto" resolved for corpus (n, d)
+    on a device of ``mem`` bytes (`_build_memory_plan`)."""
+    return _build_memory_plan(cfg, n, d, mem).engine
 
 
 def _rounds_for_pass(cfg, pass_i: int) -> int:
@@ -379,11 +501,12 @@ def _rounds_for_pass(cfg, pass_i: int) -> int:
     return cfg.connectivity_iters_later or max(2, r0 // 4)
 
 
-def _phase_d_knob_tag(cfg, n: int, d: int) -> str:
+def _phase_d_knob_tag(cfg, n: int, d: int,
+                      mem: Optional[int] = None) -> str:
     """Phase-D checkpoint tag suffix: every knob that changes phase-D
     outputs (the knobs are fingerprint-neutral so phases A-C survive a
     knob change; see build_roargraph)."""
-    engine = _resolve_engine(cfg, n, d)
+    engine = _resolve_engine(cfg, n, d, mem)
     t = (f"{engine}_e{cfg.connectivity_expand}"
          f"i{cfg.connectivity_iters}j{_rounds_for_pass(cfg, 1)}"
          f"h{cfg.history_mult}")
@@ -492,6 +615,10 @@ def build_roargraph(
     ``base``'s device for a tensor, else the card; ``device="cpu"`` runs on
     the CPU).
 
+    The build is planned from the device's memory (`_build_memory_plan`:
+    what "auto" stands for, single or slab fold). The graph does not depend
+    on the fold path; it does depend on the engine.
+
     `learn_base_knn` is the exact train-query→base kNN ([Nq, K] ids,
     K ≥ cfg.M_sq) — produce it with `ops.knn.exact_knn`.
 
@@ -503,13 +630,19 @@ def build_roargraph(
     M = cfg.M_pjbp
     n = base.shape[0]
     nq = train_queries.shape[0]
-    knobs = _phase_d_knob_tag(cfg, n, base.shape[1])
     # progress goes to stderr: stdout belongs to callers
     log = (functools.partial(print, file=sys.stderr, flush=True)
            if verbose else (lambda *a, **k: None))
 
     base_dev = prepare_vectors(base, metric, device)  # normalized if cosine
     dev = base_dev.device
+    plan = _build_memory_plan(cfg, n, base.shape[1], device_memory(dev))
+    knobs = _phase_d_knob_tag(cfg, n, base.shape[1], plan.memory)
+    log(f"memory plan: engine {plan.engine}, {plan.fold} fold"
+        + (f" ({plan.slab_rows} rows a slab)" if plan.large else "")
+        + (f", single-fold sum {plan.bytes['resident_single'] / 1e9:.2f} GB "
+           f"against {plan.bytes['budget'] / 1e9:.2f} GB"
+           if plan.memory is not None else ", fixed thresholds"))
     knn = np.asarray(learn_base_knn[:, : cfg.M_sq], np.int64)
 
     # fingerprint-NEUTRAL knobs: connectivity_passes (pass p's checkpoint
@@ -575,9 +708,16 @@ def build_roargraph(
             _, uniq = np.unique(key, return_index=True)
             e_src, e_dst = e_src[uniq], e_dst[uniq]
             e_dist = _edge_dists(base_dev, e_src, e_dst, metric)
-            rev = _aggregate_reverse_device(
-                _to_dev(e_src, dev), _to_dev(e_dst, dev), e_dist, n=n,
-                r_max=3 * M)
+            if plan.large:
+                # the sort runs on the host; only the [n, 3M] result
+                # goes to the device
+                rev = _to_dev(_aggregate_reverse(
+                    e_src, e_dst, e_dist.cpu().numpy(), n, r_max=3 * M), dev)
+            else:
+                rev = _aggregate_reverse_device(
+                    _to_dev(e_src, dev), _to_dev(e_dst, dev), e_dist, n=n,
+                    r_max=3 * M)
+            del e_dist
             _t0 = _time.perf_counter()
             projection = _merge_forward_reverse(
                 base_dev, _to_dev(forward, dev), rev, cap=M, metric=metric,
@@ -602,11 +742,15 @@ def build_roargraph(
             if saved is not None:
                 supply = _to_dev(saved, dev)
             else:
+                if plan.large:
+                    # the pass reads the projection from the host
+                    final = final.cpu()
                 supply = _connectivity_pass(base_dev, final, ep, cfg,
                                             metric, log, ckpt=ckpt, tag=tag,
-                                            pass_i=p_i)
+                                            pass_i=p_i, plan=plan)
                 ckpt.save(tag, supply)
                 ckpt.clean_prefix(f"{tag}_r")  # round files superseded
+                final, supply = final.to(dev), supply.to(dev)
             # merge novel supply edges into projection (reference
             # :1251-1269); later passes stay under the same 2M bound
             _t0 = _time.perf_counter()
@@ -709,6 +853,59 @@ def _merge_rev_rows(own: torch.Tensor, rev: torch.Tensor, fit: torch.Tensor,
         own[s: s + bs] = torch.where(fit[s: s + bs, None], packed, own_b)
 
 
+def _fold_own_rows(supply: torch.Tensor, chunk_lists: torch.Tensor,
+                   r0: int) -> torch.Tensor:
+    """Own-row overwrite of one chunk, in place (the slab fold's
+    prologue; `_fold_round_device` makes the same call)."""
+    _own_overwrite(supply, chunk_lists, r0)
+    return supply
+
+
+def _fold_slab(supply: torch.Tensor, chunk_lists: torch.Tensor, r0: int,
+               lo: int, sn: int, edges=None):
+    """One row slab of the fold: reverse-aggregate and merge rows
+    [lo, lo+sn), updating ``supply`` in place; returns (supply, fit [sn]).
+
+    Bounded-memory twin of `_fold_round_device` for corpora whose [n, W]
+    reverse scratch cannot sit next to base + supply + table: the scratch
+    here is [sn, W]. Same edges, same ranks, same merge, so the outputs
+    are bit-identical to the single fold's. ``edges``: the chunk's
+    `_round_edges`, when the caller folds several slabs of one chunk."""
+    n, W = supply.shape
+    ds, ss, rank = edges if edges is not None else _round_edges(
+        chunk_lists, r0, n)
+    hi = min(lo + sn, n)
+    keep = (ds >= lo) & (ds < hi) & (rank < W)
+    rev = torch.full((sn + 1, W), n, dtype=_I32, device=supply.device)
+    rev[torch.where(keep, ds - lo, sn).long(),
+        torch.where(keep, rank, 0).long()] = torch.where(keep, ss, n)
+    rev = rev[: hi - lo]
+    own = supply[lo:hi]
+    deg_own = torch.sum(own < n, dim=1, dtype=_I32)
+    deg_rev = torch.sum(rev < n, dim=1, dtype=_I32)
+    fit = (deg_own + deg_rev) <= W
+    _merge_rev_rows(own, rev, fit, n)
+    return supply, fit
+
+
+def _rev_rows_for_ids(chunk_lists: torch.Tensor, r0: int,
+                      ids_sorted: torch.Tensor, n: int, W: int,
+                      edges=None) -> torch.Tensor:
+    """The arrival-order reverse lists of a sorted id set, [K, W]
+    sentinel-padded — the overflow rows' candidates without a dense
+    [n, W] scratch. Ids ≥ n get an empty list."""
+    K = ids_sorted.shape[0]
+    ds, ss, rank = edges if edges is not None else _round_edges(
+        chunk_lists, r0, n)
+    ids_sorted = ids_sorted.to(_I32)
+    pos_c = torch.clamp(torch.searchsorted(ids_sorted, ds), max=K - 1)
+    hit = (ids_sorted[pos_c] == ds) & (ds < n) & (rank < W)
+    rev = torch.full((K + 1, W), n, dtype=_I32, device=chunk_lists.device)
+    rev[torch.where(hit, pos_c, K), torch.where(hit, rank, 0).long()] = \
+        torch.where(hit, ss, n)
+    return rev[:K]
+
+
 def _fold_round_device(supply: torch.Tensor, chunk_lists: torch.Tensor,
                        r0: int):
     """Fold one connectivity chunk into the live supply graph, in place:
@@ -765,7 +962,7 @@ def _compact_truncate_device(rows: torch.Tensor, cap: int,
 
 
 def _fold_and_overflow(base_dev, supply, chunk_lists, r0, n, M, metric,
-                       prune_batch):
+                       prune_batch, slab_rows: int = 0):
     """Fold one round's pruned chunk lists into the live supply graph.
 
     Reverse edges: the reference appends while a destination is under 2M
@@ -773,13 +970,25 @@ def _fold_and_overflow(base_dev, supply, chunk_lists, r0, n, M, metric,
     PruneProjectionInternalReverseCandidates) — arrival-order insertion
     with prune-then-refill windows. Deterministic given (supply, chunk),
     which is what makes round-checkpoint replay sound. The N*W reverse
-    scratch lives only inside this call."""
-    supply, rev, fit = _fold_round_device(supply, chunk_lists, r0)
+    scratch lives only inside this call; with ``slab_rows`` the fold runs
+    in row slabs of that height (`_fold_slab`, bit-identical) and the
+    scratch never reaches full height."""
+    W = supply.shape[1]
+    if slab_rows:
+        _fold_own_rows(supply, chunk_lists, r0)
+        edges = _round_edges(chunk_lists, r0, n)
+        fits = [_fold_slab(supply, chunk_lists, r0, lo, slab_rows, edges)[1]
+                for lo in range(0, n, slab_rows)]
+        fit = fits[0] if len(fits) == 1 else torch.cat(fits)
+        rev = None
+    else:
+        supply, rev, fit = _fold_round_device(supply, chunk_lists, r0)
     over = torch.nonzero(~fit)[:, 0].to(_I32)
     if over.shape[0]:
-        cand = torch.cat([gather_rows_any(supply, over),
-                          gather_rows_any(rev, over)], dim=1)
-        del rev
+        rev_rows = (_rev_rows_for_ids(chunk_lists, r0, over, n, W, edges)
+                    if slab_rows else gather_rows_any(rev, over))
+        cand = torch.cat([gather_rows_any(supply, over), rev_rows], dim=1)
+        del rev, rev_rows
         pruned = _batched_prune_rows(base_dev, over, cand, M, metric,
                                      prune_batch, fill=False)
         # refill free slots with arrival-order leftovers not kept
@@ -787,15 +996,18 @@ def _fold_and_overflow(base_dev, supply, chunk_lists, r0, n, M, metric,
     return supply, fit
 
 
-def _prune_batch(cfg, dev: torch.device) -> int:
+def _prune_batch(cfg, dev: torch.device, large: bool = False) -> int:
     """Rows per phase-D prune batch: bounds the [B, H, H] f32 occlusion
-    tile (H = history length) to ~1/8 of the free device memory, at most
-    one search batch."""
+    tile (H = history length) to ~1/8 of the free device memory — half of
+    that on the bounded-memory paths — at most one search batch. Rows are
+    independent, so the batch size never shows in the result."""
     H = cfg.history_mult * cfg.L_pjpq
     if dev.type == "cuda":
         budget = torch.cuda.mem_get_info(dev)[0] // 8
     else:
         budget = 1 << 28
+    if large:
+        budget //= 2
     return max(8, min(cfg.search_batch, budget // (4 * H * (H + 8))))
 
 
@@ -823,7 +1035,7 @@ def _repack_changed(table, base_dev, supply_dev, ids, n, M, d, bits,
 
 
 def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
-                       ckpt=None, tag="phaseD", pass_i=0):
+                       ckpt=None, tag="phaseD", pass_i=0, plan=None):
     """Phase D: per-node search + prune + reverse supply edges.
 
     The reference runs this incrementally — every node's search sees the
@@ -839,14 +1051,26 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     prune recomputes exact f32 distances over the collected history, so
     the quantization affects traversal order only; "classic" is the f32
     lockstep beam (no table memory).
+
+    ``plan`` (`_build_memory_plan`; default: planned here for the base's
+    device) names the engine and, with ``plan.large``, the bounded-memory
+    paths: the projection stays on the host (it may be handed in there)
+    and feeds the not-seedable masks by per-batch [sb, M] uploads, the
+    fold runs in slabs, and the pass's tail hoists the overflow rows to
+    the host, frees the supply before the prune and returns its [n, M]
+    result on the host. The result's values are the same either way.
     """
     dev = base_dev.device
     n, M = projection.shape[0], cfg.M_pjbp
     d = base_dev.shape[1]
+    if plan is None:
+        plan = _build_memory_plan(cfg, n, d, device_memory(dev))
+    large = plan.large
+    slab_rows = plan.slab_rows if large else 0
     L = cfg.L_pjpq
     sb = max(8, min(cfg.search_batch, n))
     eps = torch.tensor([ep], dtype=_I32, device=dev)
-    prune_batch = _prune_batch(cfg, dev)
+    prune_batch = _prune_batch(cfg, dev, large)
     t_walk = t_pack = t_fold = t_ckpt = 0.0
 
     rounds = _rounds_for_pass(cfg, pass_i)
@@ -856,9 +1080,22 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     W = 2 * M
     pw = projection.shape[1]
     supply = torch.full((n, W), n, dtype=_I32, device=dev)
-    supply[:, : min(pw, W)] = projection[:, :W]
+    SLAB = min(n, 1 << 20)
+    for s in range(0, n, SLAB):  # a host projection goes up slab by slab
+        supply[s: s + SLAB, : min(pw, W)] = \
+            projection[s: s + SLAB, :W].to(dev)
+    # projection rows feed only the not-seedable masks
+    projection = projection.cpu() if large else projection.to(dev)
 
-    engine = _resolve_engine(cfg, n, d)
+    def proj_rows(ids=None, s=0, e=0):
+        """Projection rows [s, e), or of a device id vector, on the device."""
+        if ids is None:
+            return projection[s:e].to(dev)
+        if large:
+            return projection[ids.cpu().long()].to(dev)
+        return gather_rows_any(projection, ids)
+
+    engine = plan.engine
     bits = cfg.connectivity_bits
     dim_mult = 8 if bits == 8 else 16
     if engine == "fused" and d % dim_mult:
@@ -880,6 +1117,7 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     packed_supply = None  # the supply snapshot the current table reflects
     Mt = None
     H = cfg.history_mult * L  # history ≈ reference full_retset size
+    chunk_lists = None
     r0 = 0
     for round_i in range(rounds):
         r1 = min(r0 + chunk, n)
@@ -888,7 +1126,7 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
         if saved is not None:
             supply, _ = _fold_and_overflow(
                 base_dev, supply, _to_dev(saved, dev), r0, n, M, metric,
-                prune_batch)
+                prune_batch, slab_rows)
             log(f"\rreplayed connectivity round {min(r1, n)}/{n}", end="")
             r0 = r1
             continue
@@ -946,7 +1184,7 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
             # long-range edges the occlusion rule keeps for navigability.
             # The seed must not be an existing projection neighbour
             # (:1861-1864); two_pass stays off, as in the JAX package
-            ns = _membership(pool, projection[s:e], n)
+            ns = _membership(pool, proj_rows(s=s, e=e), n)
             chunk_lists[s - r0: e - r0] = _batched_prune_rows(
                 base_dev, torch.arange(s, e, dtype=_I32, device=dev), pool,
                 M, metric, prune_batch, fill=False, not_seedable=ns)
@@ -959,7 +1197,7 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
             t_ckpt += _time.perf_counter() - _t0
         _t0 = _time.perf_counter()
         supply, _ = _fold_and_overflow(base_dev, supply, chunk_lists, r0, n,
-                                       M, metric, prune_batch)
+                                       M, metric, prune_batch, slab_rows)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t_fold += _time.perf_counter() - _t0
@@ -977,21 +1215,37 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
     tr.record("build.phaseD.fold", t_fold)
 
     # overflow re-prune: any row > M goes back through the occlusion prune
-    # (reference :1224-1248, no fill); projection members can't seed
-    deg = torch.sum(supply < n, dim=1, dtype=_I32)
-    over = torch.nonzero(deg > M)[:, 0].to(_I32)
-    cand_over = gather_rows_any(supply, over)
-    final = _compact_truncate_device(supply, cap=M, n=n)
-    del supply
+    # (reference :1224-1248, no fill); projection members can't seed.
+    # In order: the degree scan and the compact-truncate run in row slabs
+    # (their sort scratch stays a slab's), the overflow rows are set aside
+    # — on the host under ``large`` — while the supply is alive, the
+    # supply is freed, and only then does the prune run.
+    del chunk_lists
     OB = 1 << 16  # bounds the [OB, W, M] membership broadcast
-    for s in range(0, over.shape[0], OB):
-        ids = over[s: s + OB]
-        cand = cand_over[s: s + OB]
-        ns = _membership(cand, gather_rows_any(projection, ids), n)
+    deg = torch.empty(n, dtype=_I32, device=dev)
+    for s in range(0, n, SLAB):
+        deg[s: s + SLAB] = torch.sum(supply[s: s + SLAB] < n, dim=1,
+                                     dtype=_I32)
+    over = torch.nonzero(deg > M)[:, 0].to(_I32)
+    del deg
+    cand_over = [gather_rows_any(supply, over[s: s + OB])
+                 for s in range(0, over.shape[0], OB)]
+    if large:
+        cand_over = [c.cpu() for c in cand_over]
+    final = torch.empty((n, M), dtype=_I32, device=dev)
+    for s in range(0, n, SLAB):
+        final[s: s + SLAB] = _compact_truncate_device(
+            supply[s: s + SLAB], cap=M, n=n)
+    del supply
+    for i, cand in enumerate(cand_over):
+        ids = over[i * OB: (i + 1) * OB]
+        cand = cand.to(dev)
+        ns = _membership(cand, proj_rows(ids), n)
         final[ids.long()] = _batched_prune_rows(
             base_dev, ids, cand, M, metric, prune_batch, fill=False,
             not_seedable=ns)
-    return final
+    # under ``large`` the result leaves the device with the pass
+    return final.cpu() if large else final
 
 
 def _ensure_reachability(final: np.ndarray, ep: int, base_dev, metric,

@@ -715,5 +715,5 @@ def build_ivf_streaming(tile_fn, n: int, dim: int, *,
                               metric=metric, gscale=gscale, device=dev)
     if verbose:
         print(f"ivf-streaming: built in {time.perf_counter() - t0:.1f}s",
-              flush=True)
+              file=sys.stderr, flush=True)
     return idx
