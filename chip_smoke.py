@@ -89,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -238,6 +239,96 @@ def time_ms_graph(fn, reps: int = 20, trials: int = 7) -> float:
     return float(np.median(out))
 
 
+def enqueue_us(fn, calls: int = 1000, chunk: int = 100) -> float:
+    """Host time per call of ``fn`` in microseconds, with no
+    synchronisation: ``calls`` calls by time.perf_counter, in chunks of
+    ``chunk`` with the card drained between chunks (off the clock), so a
+    full launch queue never holds the host back; the median chunk's, since
+    the host's clock jumps when the shared host is busy."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(calls // chunk):
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        per_call.append((time.perf_counter() - t0) / chunk)
+        torch.cuda.synchronize()
+    return float(np.median(per_call)) * 1e6
+
+
+def rotating(fn, table: torch.Tensor, idxs: list):
+    """``fn(table, idx)`` over the index sets ``idxs`` in turn, one set per
+    call, so a run of calls reads rows from HBM rather than from the L2."""
+    it = itertools.cycle(idxs)
+    return lambda: fn(table, next(it))
+
+
+def index_sets(table: torch.Tensor, n_idx: int, seed: int,
+               sets: int = 20) -> list:
+    """``sets`` seeded int32 index sets of ``n_idx`` rows of ``table``; the
+    first holds row 0 first and the last row last."""
+    g = torch.Generator(device=table.device)
+    g.manual_seed(seed)
+    idxs = [torch.randint(0, table.shape[0], (n_idx,), generator=g,
+                          device=table.device, dtype=torch.int32)
+            for _ in range(sets)]
+    if n_idx:
+        idxs[0][0], idxs[0][-1] = 0, table.shape[0] - 1
+    return idxs
+
+
+def k1_check(gather, table: torch.Tensor, idxs: list, tag: str) -> None:
+    """K1 against index_select, bit for bit, on the first two index sets,
+    each as int32 and as int64; fails with the max abs error otherwise."""
+    for idx in idxs[:2]:
+        for ix in (idx, idx.long()):
+            got = gather.gather_rows(table, ix)
+            want = gather.gather_rows_ref(table, ix)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"K1 {tag}: shape/dtype {got.shape} {got.dtype}")
+            if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+                err = float((got.float() - want.float()).abs().max())
+                fail(f"K1 differs from index_select on {tag} "
+                     f"{list(table.shape)} {table.dtype} ({ix.dtype}), "
+                     f"max abs err {err}")
+
+
+def plan_text(plan) -> str:
+    """K1's launch plan in a few words: path, word, whether segmented."""
+    return (f"{plan.path}, {plan.word} B words"
+            + (", segments" if plan.seg_bytes else ""))
+
+
+def k1_timings(gather, table: torch.Tensor, idxs: list) -> dict:
+    """K1 and index_select on ``table`` over the rotating index sets
+    ``idxs``: graph-timed ms (20 calls replayed from one CUDA graph, the
+    host out), host-launched ms, host enqueue us per call, the bound (rows
+    read and written once, indices read once, at HBM_BYTES_S), the graph
+    share and the plan's path."""
+    n_idx = idxs[0].shape[0]
+    row_bytes = table.stride(0) * table.element_size()
+    kernel = rotating(gather.gather_rows, table, idxs)
+    library = rotating(lambda t, i: torch.index_select(t, 0, i), table, idxs)
+    t = {"rows": n_idx, "row_bytes": row_bytes,
+         "plan": plan_text(gather.plan_for(table, n_idx)),
+         "kernel_graph_ms": time_ms_graph(kernel),
+         "index_select_graph_ms": time_ms_graph(library),
+         "kernel_ms": time_ms(kernel), "index_select_ms": time_ms(library),
+         "kernel_enqueue_us": enqueue_us(kernel),
+         "index_select_enqueue_us": enqueue_us(library),
+         "bound_ms": (2 * n_idx * row_bytes + 4 * n_idx) / HBM_BYTES_S * 1e3}
+    t["share_graph"] = t["bound_ms"] / t["kernel_graph_ms"]
+    return t
+
+
+def is_k1_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is one of K1's (csrc/gather.cu keeps
+    every kernel in namespace msann_k1)."""
+    return "msann_k1" in name
+
+
 def device_split(fn, top: int = 8) -> dict:
     """Device time of one call of ``fn`` from a torch.profiler trace: the
     wall time (profiled), the kernels' summed time, their busy share of
@@ -263,8 +354,7 @@ def device_split(fn, top: int = 8) -> dict:
     busy = sum(by_name.values())
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
-    k1 = sum(v for k, v in by_name.items() if "gather_" in k
-             and ("rows_kernel" in k or "segments_kernel" in k))
+    k1 = sum(v for k, v in by_name.items() if is_k1_kernel(k))
     out.update(device_ms=busy / 1e3, busy_share=busy / max(1, span),
                k1_ms=k1 / 1e3,
                top={k[:60]: v / 1e3 for k, v in sorted(
@@ -273,101 +363,81 @@ def device_split(fn, top: int = 8) -> dict:
 
 
 def kernel_checks(gather, dev) -> dict:
-    """Phase 3: the kernel against index_select at the listed shapes."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
+    """Phase 3: the kernel against index_select at the narrow-row shapes,
+    int32 and int64 indices, and on a table view off 16 bytes (the register
+    path); each shape timed over 20 rotating index sets; the out-of-range
+    flag on each path (narrow; register rows, segments, 4-byte words)."""
     cases = [
         ("f32", (1_000_000, 128), torch.float32, 65536),
         ("i32", (1_000_000, 64), torch.int32, 65536),
         ("i8_odd_width", (4096, 48), torch.int8, 65536),
         ("bf16", (10_000, 96), torch.bfloat16, 65536),
+        ("u8_view_off4", (100_000, 516), torch.uint8, 65536),
         ("empty", (1000, 128), torch.float32, 0),
     ]
-    max_err = 0.0
     timings = {}
-    for name, shape, dt, n_idx in cases:
-        if dt.is_floating_point:
-            table = torch.randn(shape, generator=g, device=dev).to(dt)
-        else:
-            table = torch.randint(-100, 100, shape, generator=g, device=dev,
-                                  dtype=torch.int32).to(dt)
-        idx = torch.randint(0, shape[0], (n_idx,), generator=g, device=dev,
-                            dtype=torch.int32)
+    for seed, (name, shape, dt, n_idx) in enumerate(cases):
+        if name == "u8_view_off4":
+            table = random_bytes((shape[0] * shape[1] + 4, 1), dev, seed)
+            table = table.view(-1)[4:].view(shape)
+        else:       # raw bits, compared as bytes (NaN patterns too)
+            table = random_bytes(shape, dev, seed, dt)
+        idxs = index_sets(table, n_idx, seed)
+        k1_check(gather, table, idxs, name)
         if n_idx:
-            idx[0], idx[-1] = 0, shape[0] - 1
-        for ix in (idx, idx.long()):
-            got = gather.gather_rows(table, ix)
-            want = gather.gather_rows_ref(table, ix)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"kernel {name}: shape/dtype {got.shape} {got.dtype}")
-            equal = torch.equal(got, want)
-            err = (float((got.float() - want.float()).abs().max())
-                   if got.numel() else 0.0)
-            max_err = max(max_err, err)
-            check(equal, f"kernel {name} ({ix.dtype}): differs from "
-                         f"index_select, max abs err {err}")
-        if name in ("f32", "i32"):
-            timings[name] = {
-                "kernel_ms": time_ms(lambda: gather.gather_rows(table, idx)),
-                "plain_ms": time_ms(
-                    lambda: gather.gather_rows_ref(table, idx)),
-                "index_select_ms": time_ms(
-                    lambda: torch.index_select(table, 0, idx)),
-                "rows": n_idx, "row_bytes": shape[1] * table.element_size()}
+            timings[name] = k1_timings(gather, table, idxs)
+            if name == "f32":
+                timings[name]["plain_graph_ms"] = time_ms_graph(
+                    rotating(gather.gather_rows_ref, table, idxs))
+        del table, idxs
     phase("kernel", bit_identical=True, cases=[c[0] for c in cases],
           timings=timings)
 
-    # an index of N must not be read: its row comes back zero and the
-    # device flag is set; then the flag is cleared for the main path
-    table = torch.ones((1000, 128), device=dev)
-    out = gather.gather_rows(table, torch.tensor([5, 1000], device=dev,
-                                                 dtype=torch.int32))
-    torch.cuda.synchronize()
-    check(gather.error_flag_value() == 1, "out-of-range index set no flag")
-    check(bool((out[1] == 0).all()) and bool((out[0] == 1).all()),
-          "out-of-range row not zeroed")
-    gather.reset_error_flag()
-    check(gather.error_flag_value() == 0, "error flag did not reset")
-    phase("kernel_flag", out_of_range_flagged=True, reset=True)
+    # an index of N (or -1) must not be read: its row comes back zero and
+    # the device flag is set, on every path; then the flag is cleared
+    paths = {}
+    for rows, width, off in ((1000, 512, 0), (200, 6528, 0), (64, 131072, 0),
+                             (1000, 512, 4)):
+        table = random_bytes((rows * width + off, 1), dev, 9).view(-1)
+        table = table[off:].view(rows, width)
+        for dt in (torch.int32, torch.int64):
+            idx = torch.tensor([5, rows, -1, rows - 1], device=dev, dtype=dt)
+            out = gather.gather_rows(table, idx)
+            torch.cuda.synchronize()
+            check(gather.error_flag_value() == 1,
+                  f"out-of-range index set no flag ({width} B rows)")
+            check(bool((out[1:3] == 0).all())
+                  and torch.equal(out[[0, 3]], table[[5, rows - 1]]),
+                  f"out-of-range row not zeroed ({width} B rows)")
+            gather.reset_error_flag()
+            check(gather.error_flag_value() == 0, "error flag did not reset")
+        paths[f"{width}B_off{off}"] = plan_text(gather.plan_for(table, 4))
+    check(len(set(paths.values())) == 4,
+          f"the out-of-range checks missed a path: {paths}")
+    phase("kernel_flag", out_of_range_flagged=True, reset=True, paths=paths)
     f32 = timings["f32"]
-    # each gathered row read once and written once, the indices read once
-    moved = 2 * f32["rows"] * f32["row_bytes"] + 4 * f32["rows"]
-    return {"max_abs_err": max_err, "ms": f32["kernel_ms"],
-            "plain_ms": f32["plain_ms"], "library_ms": f32["index_select_ms"],
-            "bound_ms": moved / HBM_BYTES_S * 1e3, "bound_by": "bytes"}
+    # every case was bit for bit, or the run failed above
+    return {"max_abs_err": 0.0, "ms": f32["kernel_graph_ms"],
+            "plain_ms": f32["plain_graph_ms"],
+            "library_ms": f32["index_select_graph_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": "bytes"}
 
 
 def kernel_fused_rows(gather, dev, n_rows: int = 1_000_001,
                       n_idx: int = 32768) -> dict:
     """Phase 3b: the gather kernel on the fused engine's byte-row tables —
     serving (bits 8, M 48: 6,528 B) and build (bits 4, W 64: 4,608 B) — bit
-    for bit against index_select, with median times of both (~11 GB of
-    tables, freed after each case)."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(2)
+    for bit against index_select (int32 and int64 indices), timed over 20
+    rotating index sets (~11 GB of tables, freed after each case)."""
     timings = {}
-    for name, row_bytes in (("serve_u8_6528", 6528), ("build_u8_4608", 4608)):
-        table = torch.randint(0, 256, (n_rows, row_bytes), generator=g,
-                              device=dev, dtype=torch.uint8)
-        idx = torch.randint(0, n_rows, (n_idx,), generator=g, device=dev,
-                            dtype=torch.int32)
-        idx[0], idx[-1] = 0, n_rows - 1
-        got = gather.gather_rows(table, idx)
-        want = gather.gather_rows_ref(table, idx)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want),
-              f"kernel {name}: differs from index_select")
-        del got, want
-        t_k = time_ms(lambda: gather.gather_rows(table, idx))
-        t_p = time_ms(lambda: gather.gather_rows_ref(table, idx))
-        moved = 2 * n_idx * row_bytes   # bytes read + written
-        timings[name] = {"kernel_ms": t_k, "index_select_ms": t_p,
-                         "kernel_gb_s": moved / t_k / 1e6,
-                         "index_select_gb_s": moved / t_p / 1e6,
-                         "rows": n_idx, "row_bytes": row_bytes,
+    for seed, (name, row_bytes) in enumerate(
+            (("serve_u8_6528", 6528), ("build_u8_4608", 4608))):
+        table = random_bytes((n_rows, row_bytes), dev, 2 + seed)
+        idxs = index_sets(table, n_idx, 2 + seed)
+        k1_check(gather, table, idxs, name)
+        timings[name] = {**k1_timings(gather, table, idxs),
                          "table_rows": n_rows}
-        del table, idx
+        del table, idxs
         torch.cuda.empty_cache()
     check(gather.error_flag_value() == 0,
           "the gather kernel met an out-of-range index (byte rows)")
@@ -378,39 +448,27 @@ def kernel_fused_rows(gather, dev, n_rows: int = 1_000_001,
 def k1_on_table(gather, table: torch.Tensor, tag: str, n_idx: int = 32768,
                 seed: int = 21) -> dict:
     """K1 against its plain version on a table a larger-world path holds
-    (or one of its shape): ``n_idx`` seeded indices with row 0 and the last
-    row among them, bit for bit; median ms of both and the HBM bound."""
-    g = torch.Generator(device=table.device)
-    g.manual_seed(seed)
-    idx = torch.randint(0, table.shape[0], (n_idx,), generator=g,
-                        device=table.device, dtype=torch.int32)
-    idx[0], idx[-1] = 0, table.shape[0] - 1
-    got = gather.gather_rows(table, idx)
-    want = gather.gather_rows_ref(table, idx)
-    torch.cuda.synchronize()
-    check(got.shape == want.shape and got.dtype == want.dtype
-          and torch.equal(got, want),
-          f"K1 differs from index_select on {tag} "
-          f"{list(table.shape)} {table.dtype}")
-    del got, want
-    row_bytes = table[0].numel() * table.element_size()
+    (or one of its shape): 20 rotating sets of ``n_idx`` seeded indices,
+    the first with row 0 and the last row, bit for bit (int32 and int64);
+    the timings of ``k1_timings``."""
+    idxs = index_sets(table, n_idx, seed)
+    k1_check(gather, table, idxs, tag)
     return {"table": list(table.shape),
-            "dtype": str(table.dtype).split(".")[-1], "rows": n_idx,
-            "row_bytes": row_bytes, "bit_identical": True,
-            "kernel_ms": time_ms(lambda: gather.gather_rows(table, idx)),
-            "plain_ms": time_ms(lambda: gather.gather_rows_ref(table, idx)),
-            "bound_ms": (2 * n_idx * row_bytes + 4 * n_idx)
-            / HBM_BYTES_S * 1e3}
+            "dtype": str(table.dtype).split(".")[-1], "bit_identical": True,
+            **k1_timings(gather, table, idxs)}
 
 
-def random_bytes(shape, dev, seed: int) -> torch.Tensor:
-    """A seeded uint8 table, filled in slabs of under 2^31 elements."""
+def random_bytes(shape, dev, seed: int,
+                 dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """A seeded table of random bytes (as ``dtype``), filled in slabs of
+    under 2^31 bytes."""
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    table = torch.empty(shape, dtype=torch.uint8, device=dev)
-    for slab in table.split(max(1, (1 << 30) // shape[1])):
+    width = shape[1] * torch.empty((), dtype=dtype).element_size()
+    table = torch.empty((shape[0], width), dtype=torch.uint8, device=dev)
+    for slab in table.split(max(1, (1 << 30) // width)):
         slab.random_(0, 256, generator=g)
-    return table
+    return table.view(dtype)
 
 
 def reachable_all(neighbors: np.ndarray, ep: int) -> bool:
@@ -638,7 +696,7 @@ def scan_batch_split(idx, q: torch.Tensor) -> dict:
     for e in kernels:
         if "binned_scan" in e.name:
             stage = "k2_ms"
-        elif "gather_rows" in e.name:
+        elif is_k1_kernel(e.name):
             stage = "rerank_ms"
         elif stage == "k2_ms":
             stage = "bin_topk_ms"
@@ -898,43 +956,17 @@ def bipartite_path(port, gather, world: dict) -> int:
 
 def ivf_k1_blocks(gather, index) -> dict:
     """K1 on the IVF index's own block table (f32 or int8) at C = 4 and 64
-    rows per call: bit for bit against index_select; host-timed and
-    graph-timed ms of both, the HBM bound and the share."""
+    rows per call: bit for bit against index_select (int32 and int64), and
+    ``k1_timings`` over 20 index sets, so a run of calls reads 20·C
+    different blocks (up to 524 MB) instead of re-reading one set from the
+    50 MB L2."""
     blocks = index.blocks
-    g = torch.Generator(device=blocks.device)
-    g.manual_seed(5)
     out = {}
     for C in (4, 64):
-        # 20 index sets, one per timed call, so a run of calls reads
-        # 20·C different blocks (up to 524 MB) instead of re-reading one
-        # set from the 50 MB L2
-        idxs = [torch.randint(0, blocks.shape[0], (C,), generator=g,
-                              device=blocks.device, dtype=torch.int32)
-                for _ in range(20)]
-        idxs[0][0], idxs[0][-1] = 0, blocks.shape[0] - 1
-        for idx in idxs[:2]:
-            got = gather.gather_rows(blocks, idx)
-            want = gather.gather_rows_ref(blocks, idx)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"K1 differs from index_select on IVF blocks "
-                  f"({blocks.dtype}, C={C})")
-        row_bytes = blocks[0].numel() * blocks.element_size()
-        bound = (2 * C * row_bytes + 4 * C) / HBM_BYTES_S * 1e3
-
-        def rotating(fn):
-            it = iter(idxs * 1000)
-            return lambda: fn(blocks, next(it))
-
-        t = {"kernel_ms": time_ms(rotating(gather.gather_rows)),
-             "index_select_ms": time_ms(rotating(gather.gather_rows_ref)),
-             "kernel_graph_ms": time_ms_graph(
-                 rotating(gather.gather_rows)),
-             "index_select_graph_ms": time_ms_graph(
-                 rotating(gather.gather_rows_ref)),
-             "bound_ms": bound, "row_bytes": row_bytes}
-        t["share_graph"] = bound / t["kernel_graph_ms"]
-        out[f"{str(blocks.dtype).split('.')[-1]}_C{C}"] = t
+        idxs = index_sets(blocks, C, 5 + C)
+        k1_check(gather, blocks, idxs, f"IVF blocks (C={C})")
+        out[f"{str(blocks.dtype).split('.')[-1]}_C{C}"] = k1_timings(
+            gather, blocks, idxs)
     return out
 
 
@@ -1383,13 +1415,14 @@ def large_build(port, gather, dev) -> int:
         rows.append(row)
         phase("large_serve", **row)
     serve_launches = gather.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     k1["serve_rows_u8"] = k1_on_table(gather, fs.table,
                                       "the 4M serving table")
     phase("large_k1", **k1)
     best = max(r["recall@10"] for r in rows)
     phase("large_serve_summary", k1_launches=serve_launches,
           best_recall=best, table_gb=fs.table.numel() / 1e9,
-          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+          peak_gb=peak_gb)
     check(serve_launches > 0, "4M fused serving launched K1 0 times")
     check(best >= LARGE_RECALL_FLOOR,
           f"no 4M fused row reached recall@10 >= {LARGE_RECALL_FLOOR} "

@@ -2,33 +2,41 @@
 CUDA source on one card, in turns.
 
     python scripts/torch_kernel_ab.py gather                        # this checkout
-    python scripts/torch_kernel_ab.py gather --other OLD/gather.cu  # A/B
+    python scripts/torch_kernel_ab.py gather --other OLD/mysteryann_tpu_torch/csrc/gather.cu
+    python scripts/torch_kernel_ab.py gather --shapes f32_1M,ivf_i8   # name prefixes
     python scripts/torch_kernel_ab.py scan --other OLD/scan.cu [--n --queries --dim]
 
-Builds the kernel's source of this checkout (``csrc/gather.cu`` for K1, the
-row gather; ``csrc/scan.cu`` for K2, the binned scan) and, with each
-``--other``, another source with the same C entry point (for example the
-parent commit's, unpacked with ``git archive`` into a git-ignored
-directory). At every shape it checks each version bit for bit against the
-plain version (K1: ``torch.index_select`` on random rows; K2:
-``binned_scan_ref`` on dyadic data), then times them by CUDA events
-(``chip_smoke.time_ms``; K1 median of 7 trials of 20 calls, K2 of 5 trials
-of 3) in the order others, this, this, others reversed, and prints the card,
-every build's ptxas lines and one JSON line per shape: each version's times,
-the library call's (K1 ``index_select``; K2 none), the bound (K1: rows read
-and written once and indices read once at 3.35 TB/s; K2: its bf16 products
-at 989 TFLOP/s) and each version's best share of it.
+K1, the row gather: every version is timed through its own Python wrapper,
+so host-launched times include each design's host path. ``--other`` names
+another ``csrc/gather.cu`` (for example the parent commit's, unpacked with
+``git archive`` into a git-ignored directory); the ``ops/gather.py`` beside
+it in that tree is loaded with it. At every shape of GATHER_SHAPES (the
+shapes the port's paths give K1) each version is checked bit for bit
+against ``torch.index_select`` (int32 and int64 indices), then timed over
+20 rotating index sets, so a run of calls reads its rows from HBM, not the
+L2: graph-timed (``chip_smoke.time_ms_graph``, 20 calls replayed from one
+CUDA graph: device time, the host out), host-launched
+(``chip_smoke.time_ms``, median of 7 trials of 20 calls) and host enqueue
+us per call (``chip_smoke.enqueue_us``, 1,000 calls, no synchronisation),
+in the order others, this, this, others reversed. ``index_select`` is
+timed the same way (the library call), and for this checkout the enqueue
+of ``torch.empty`` of the output alone and of the bare ctypes launch, the
+two parts of the host path. One JSON line per shape; the bound counts rows
+read and written once and indices read once at 3.35 TB/s.
 
-K1's shapes are the IVF index's cluster blocks at the 1M x 128 world (2,000
-clusters, cap 800; C = 4 rows per call at 8,192 queries and nprobe 64, 64
-at small qmax), then the narrow rows of the graph paths. K2's is the flat
-path's (8,192 queries x 1M x 128 by default).
+K2, the binned scan: each ``--other`` is bound by its C entry point; checked
+bit for bit against ``binned_scan_ref`` on dyadic data and timed by CUDA
+events (median of 5 trials of 3), with its bound at 989 TFLOP/s (bf16).
+
+Prints the card's name and power limit first, then every build's ptxas
+lines.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -39,18 +47,35 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-from chip_smoke import BF16_FLOP_S, HBM_BYTES_S, time_ms  # noqa: E402
+from chip_smoke import (BF16_FLOP_S, HBM_BYTES_S, enqueue_us,  # noqa: E402
+                        index_sets, random_bytes, rotating, time_ms,
+                        time_ms_graph)
 from mysteryann_tpu_torch.ops import gather, scan  # noqa: E402
 from mysteryann_tpu_torch.ops._nvcc import build_library  # noqa: E402
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+# (name, table shape, dtype, rows per call): the narrow rows of the graph
+# paths at 1M and 4M, the smoke's odd shapes, the fused engine's byte rows
+# (serving 6,528 B, build 4,608 B; the 4M build's and its serving table's),
+# and the IVF index's cluster blocks at the 1M world (2,000 clusters, cap
+# 800; C = 4 rows per call at 8,192 queries and nprobe 64, 64 at small
+# qmax) and at the 10M world (6,324 clusters, cap 2,080)
 GATHER_SHAPES = (
+    ("f32_1M_x128", (1_000_000, 128), torch.float32, 65536),
+    ("i32_1M_x64", (1_000_000, 64), torch.int32, 65536),
+    ("bf16_10k_x96", (10_000, 96), torch.bfloat16, 65536),
+    ("i8_4096_x48", (4096, 48), torch.int8, 65536),
+    ("f32_4M_x128", (4_000_000, 128), torch.float32, 65536),
+    ("i32_4M_x64", (4_000_000, 64), torch.int32, 65536),
+    ("u8_1M_x6528", (1_000_001, 6528), torch.uint8, 32768),
+    ("u8_1M_x4608", (1_000_001, 4608), torch.uint8, 32768),
+    ("u8_4M_x4608", (4_000_001, 4608), torch.uint8, 32768),
+    ("u8_4M_x2304", (4_000_001, 2304), torch.uint8, 32768),
     ("ivf_f32_C4", (2000, 800, 128), torch.float32, 4),
     ("ivf_f32_C64", (2000, 800, 128), torch.float32, 64),
     ("ivf_i8_C4", (2000, 800, 128), torch.int8, 4),
     ("ivf_i8_C64", (2000, 800, 128), torch.int8, 64),
-    ("f32_1M_x128", (1_000_000, 128), torch.float32, 65536),
-    ("u8_1M_x6528", (1_000_001, 6528), torch.uint8, 32768),
+    ("ivf10m_i8_C4", (6324, 2080, 128), torch.int8, 4),
+    ("ivf10m_i8_C64", (6324, 2080, 128), torch.int8, 64),
 )
 
 
@@ -64,41 +89,115 @@ def _call(fn, *args) -> None:
         raise RuntimeError(f"launch failed: CUDA error {rc}")
 
 
-def gather_cases(args, dev):
-    """K1 at GATHER_SHAPES, one case per shape: (name, fields, launch(fn),
-    clear(), agrees(), library())."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    for name, shape, dt, n_idx in GATHER_SHAPES:
-        table = torch.randint(-100, 100, shape, generator=g, device=dev,
-                              dtype=torch.int32).to(dt)
-        idx = torch.randint(0, shape[0], (n_idx,), generator=g, device=dev,
-                            dtype=torch.int32)
-        want = torch.index_select(table, 0, idx.long())
-        out = torch.empty_like(want)
-        row_bytes = table[0].numel() * table.element_size()
+def _ptxas(log: str) -> list:
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
 
-        def launch(fn):
-            _call(fn, table.data_ptr(), table.shape[0], row_bytes,
-                  idx.data_ptr(), 0, n_idx, out.data_ptr(), flag.data_ptr(),
-                  _stream())
 
-        def agrees():
-            return torch.equal(out, want) and not int(flag.item())
+def load_gather(source: str, tag: str):
+    """The wrapper module of another tree's ``csrc/gather.cu``: its
+    ``ops/gather.py``, bound to that source."""
+    wrapper = os.path.join(os.path.dirname(os.path.dirname(source)), "ops",
+                           "gather.py")
+    if not os.path.exists(wrapper):
+        sys.exit(f"no ops/gather.py beside {source}")
+    spec = importlib.util.spec_from_file_location(f"_k1_{tag}", wrapper)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = source
+    return mod
 
-        fields = {"table": list(shape), "dtype": str(dt), "rows": n_idx,
-                  "row_bytes": row_bytes,
-                  "bound_ms": (2 * n_idx * row_bytes + 4 * n_idx)
-                  / HBM_BYTES_S * 1e3}
-        yield (name, fields, launch, lambda: out.zero_(), agrees,
-               lambda: torch.index_select(table, 0, idx))
-        del table, idx, want, out
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def host_parts(table: torch.Tensor, idxs: list) -> dict:
+    """Enqueue us of the two parts of this checkout's host path: the
+    output's ``torch.empty`` and the bare ctypes launch."""
+    n_idx = idxs[0].shape[0]
+    shape = (n_idx,) + tuple(table.shape[1:])
+    out = torch.empty(shape, dtype=table.dtype, device=table.device)
+    d = table.get_device()
+    plan = gather._cached_plan(d, out.nbytes // n_idx, n_idx,
+                               table.data_ptr(), out.data_ptr())[2]
+    args = [gather._pack_args(table.data_ptr(), table.shape[0], i.data_ptr(),
+                              0, n_idx, out.data_ptr(), gather._flag_ptrs[d],
+                              _stream(), plan) for i in idxs]
+    it = iter(args * 100)
+    return {"empty_us": enqueue_us(lambda: torch.empty(
+                shape, dtype=table.dtype, device=table.device)),
+            "launch_us": enqueue_us(lambda: gather._fn(next(it)))}
+
+
+def run_gather(args, dev) -> None:
+    versions = {"this": gather}
+    others = [f"other{i}" for i in range(len(args.other))]
+    for name, path in zip(others, args.other):
+        versions[name] = load_gather(os.path.abspath(path), name)
+    for name, mod in versions.items():
+        mod.build(force=True)
+        print(json.dumps({"build": name, "source": mod.SOURCE,
+                          "ptxas": _ptxas(mod.build_log)}), flush=True)
+    order = others + ["this", "this"] + others[::-1]
+    wanted = args.shapes.split(",") if args.shapes else None
+    for seed, (name, shape, dt, n_idx) in enumerate(GATHER_SHAPES):
+        if wanted and not any(name.startswith(w) for w in wanted):
+            continue
+        flat = (shape[0], shape[1] * (shape[2] if len(shape) > 2 else 1))
+        table = random_bytes(flat, dev, seed, dt).view(shape)
+        idxs = index_sets(table, n_idx, seed)
+        for ver, mod in versions.items():
+            for idx in idxs[:2]:
+                for ix in (idx, idx.long()):
+                    got = mod.gather_rows(table, ix)
+                    want = torch.index_select(table, 0, ix)
+                    torch.cuda.synchronize()
+                    if not _same_bytes(got, want):
+                        sys.exit(f"{ver}: differs from index_select at "
+                                 f"{name} ({ix.dtype})")
+            if mod.error_flag_value():
+                sys.exit(f"{ver}: error flag set at {name}")
+        graph = {v: [] for v in versions}
+        host = {v: [] for v in versions}
+        enq = {v: [] for v in versions}
+        for ver in order:
+            fn = rotating(versions[ver].gather_rows, table, idxs)
+            graph[ver].append(time_ms_graph(fn))
+            host[ver].append(time_ms(fn))
+            enq[ver].append(enqueue_us(fn))
+        lib = rotating(lambda t, i: torch.index_select(t, 0, i), table, idxs)
+        row_bytes = table.stride(0) * table.element_size()
+        bound = (2 * n_idx * row_bytes + 4 * n_idx) / HBM_BYTES_S * 1e3
+        print(json.dumps({
+            "kernel": "gather", "shape": name, "table": list(shape),
+            "dtype": str(dt), "rows": n_idx, "row_bytes": row_bytes,
+            "plan": gather.plan_for(table, n_idx)._asdict(),
+            "bit_identical": True, "bound_ms": bound,
+            "graph_ms": graph, "host_ms": host, "enqueue_us": enq,
+            "index_select": {"graph_ms": time_ms_graph(lib),
+                             "host_ms": time_ms(lib),
+                             "enqueue_us": enqueue_us(lib)},
+            "this_host_parts": host_parts(table, idxs),
+            "share_graph": {v: bound / min(t) for v, t in graph.items()},
+            "sources": dict(zip(others, args.other))}), flush=True)
+        del table, idxs
         torch.cuda.empty_cache()
 
 
-def scan_cases(args, dev):
-    """K2 at one (queries, n, dim) shape on dyadic data."""
+def run_scan(args, dev) -> None:
+    argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4 \
+        + [ctypes.c_void_p] * 3
+    sources = {"this": scan.SOURCE}
+    others = [f"other{i}" for i in range(len(args.other))]
+    sources.update(zip(others, (os.path.abspath(p) for p in args.other)))
+    fns = {}
+    for ver, source in sources.items():
+        lib, _, log = build_library(source, force=True)
+        fn = lib.msann_binned_scan
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[ver] = fn
+        print(json.dumps({"build": ver, "ptxas": _ptxas(log)}), flush=True)
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     q = (torch.randint(-8, 9, (args.queries, args.dim), generator=g,
@@ -113,40 +212,30 @@ def scan_cases(args, dev):
               tbl.shape[0] // scan.C_BLK, q.shape[1], args.n,
               out_d.data_ptr(), out_j.data_ptr(), _stream())
 
-    def agrees():
-        return torch.equal(out_d, want_d) and torch.equal(out_j, want_j)
-
-    flops = 2.0 * args.queries * args.n * args.dim
-    yield ("scan", {"table": [args.queries, args.n, args.dim],
-                    "bound_ms": flops / BF16_FLOP_S * 1e3},
-           launch, lambda: out_d.zero_(), agrees, None)
-
-
-KERNELS = {
-    "gather": dict(source=gather.SOURCE, entry="msann_gather_rows",
-                   argtypes=[_P, _I, _I, _P, _I, _I, _P, _P, _P],
-                   cases=gather_cases, reps=20, trials=7),
-    "scan": dict(source=scan.SOURCE, entry="msann_binned_scan",
-                 argtypes=[_P, _P, _I, _I, _I, _I, _P, _P, _P],
-                 cases=scan_cases, reps=3, trials=5),
-}
-
-
-def bind(kernel: dict, source: str):
-    lib, _, log = build_library(source, force=True)
-    fn = getattr(lib, kernel["entry"])
-    fn.argtypes = kernel["argtypes"]
-    fn.restype = ctypes.c_int
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    return fn, ptxas
+    for ver, fn in fns.items():
+        out_d.zero_()
+        launch(fn)
+        torch.cuda.synchronize()
+        if not (torch.equal(out_d, want_d) and torch.equal(out_j, want_j)):
+            sys.exit(f"{ver}: differs from the plain version")
+    times = {ver: [] for ver in fns}
+    for ver in others + ["this", "this"] + others[::-1]:
+        times[ver].append(time_ms(lambda: launch(fns[ver]), 3, 5))
+    bound = 2.0 * args.queries * args.n * args.dim / BF16_FLOP_S * 1e3
+    print(json.dumps({
+        "kernel": "scan", "shape": [args.queries, args.n, args.dim],
+        "bound_ms": bound, "bit_identical": True, "ms": times,
+        "share": {v: bound / min(t) for v, t in times.items()},
+        "sources": dict(zip(others, args.other))}), flush=True)
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("kernel", choices=sorted(KERNELS))
+    p.add_argument("kernel", choices=("gather", "scan"))
     p.add_argument("--other", action="append", default=[],
                    help="another source of the same kernel (repeatable)")
+    p.add_argument("--shapes", default="",
+                   help="gather: comma-separated prefixes of shape names")
     p.add_argument("--n", type=int, default=1_000_000, help="scan: rows")
     p.add_argument("--queries", type=int, default=8192, help="scan: queries")
     p.add_argument("--dim", type=int, default=128, help="scan: dimension")
@@ -157,38 +246,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-
-    kernel = KERNELS[args.kernel]
-    versions = {"this": bind(kernel, kernel["source"])}
-    others = [f"other{i}" for i in range(len(args.other))]
-    for name, path in zip(others, args.other):
-        versions[name] = bind(kernel, os.path.abspath(path))
-    for name, (_, ptxas) in versions.items():
-        print(json.dumps({"build": name, "ptxas": ptxas}), flush=True)
-
-    reps, trials = kernel["reps"], kernel["trials"]
-    order = others + ["this", "this"] + others[::-1]
     dev = torch.device("cuda", 0)
-    for name, fields, launch, clear, agrees, library in kernel["cases"](
-            args, dev):
-        for ver, (fn, _) in versions.items():
-            clear()
-            launch(fn)
-            torch.cuda.synchronize()
-            if not agrees():
-                sys.exit(f"{ver}: differs from the plain version at {name}")
-        times = {ver: [] for ver in versions}
-        for ver in order:
-            fn = versions[ver][0]
-            times[ver].append(time_ms(lambda: launch(fn), reps, trials))
-        bound = fields["bound_ms"]
-        print(json.dumps({
-            "kernel": args.kernel, "shape": name, **fields,
-            "bit_identical": True, "ms": times,
-            "library_ms": (time_ms(library, reps, trials) if library
-                           else None),
-            "share": {v: bound / min(t) for v, t in times.items()},
-            "sources": dict(zip(others, args.other))}), flush=True)
+    (run_gather if args.kernel == "gather" else run_scan)(args, dev)
 
 
 if __name__ == "__main__":
