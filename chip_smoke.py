@@ -3,7 +3,9 @@ time both hand-written kernels (the row gather K1 and the binned scan K2),
 drive the RoarGraph build-then-search path once at full width, then the
 flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
-index, the IVF index and seven CLIs on the same world; then the worlds
+index, the IVF index, parallel/ (sharded kNN, distributed and
+query-parallel beam search, sharded IVF, in 4 ranks sharing the card) and
+seven CLIs on the same world; then the worlds
 larger than 1M: the build's slab paths at 4M rows, a 4M x 128 build and
 seeded fused serving, and the index-keyed device corpus at 10M rows.
 
@@ -55,15 +57,27 @@ Phases, one line each before the last:
      at the IVF block shapes against index_select (host-timed and in a
      CUDA graph, 20 different index sets per run), with its bound; a
      profiler split of one batch;
- 12. cli: the port's compute_gt, search_flat (int8) and search_roargraph
+ 12. parallel: parallel/ on the same world — 4 ranks (dp=2 x mp=2) spawned
+     by parallel.launch share the card over gloo and run sharded_exact_knn,
+     distributed_beam_search (L = 100, pool mode, expand 2),
+     query_parallel_search and ShardedIVF over the phase-11 f32 and int8
+     indexes (nprobe 64), each against the port's single-device call on the
+     card (kNN: ids >= 0.999, dists within 1e-4; beams: equal hops and cmps,
+     ids >= 0.999; IVF f32: dists within 1e-5, ids >= 0.99; IVF int8:
+     recall within 0.02); K1 launched in every rank and equal to
+     gather_rows_ref on the rank's base and neighbour shards; then a 1x1
+     mesh over NCCL in one rank, bit for bit against single-device on 1,024
+     queries. Ranks sharing one card: a correctness run, not a scaling
+     figure;
+ 13. cli: the port's compute_gt, search_flat (int8) and search_roargraph
      (--engine fused, seeded) CLIs through their main() on the same world
      written as .fbin files; then export_fbin, build_bipartite →
      search_bipartite and build_ivf → search_ivf on a 200k-row slice;
- 13. large_fold: at n = 4M, W = 64, M = 32, a seeded ragged supply and one
+ 14. large_fold: at n = 4M, W = 64, M = 32, a seeded ragged supply and one
      round's chunk lists: the single fold against _fold_own_rows +
      _fold_slab + _rev_rows_for_ids, and the device reverse aggregation
      against the host one, bit for bit, with both times and peak memory;
- 14. large_build: scripts/torch_bench_4m_fused.py's world and recipe at
+ 15. large_build: scripts/torch_bench_4m_fused.py's world and recipe at
      4M x 128 through build_roargraph with engine "auto" (one phase-D pass
      instead of the script's two and 200k of its 400k train queries, for
      time): the memory plan's choices and bytes, the per-phase split, peak
@@ -73,7 +87,7 @@ Phases, one line each before the last:
      for bit, on the 4M base, on tables of the supply's ([4M, 64] i32) and
      the phase-D byte rows' ([4M+1, 4608] u8) shapes and on the serving
      table itself, with both times;
- 15. device_world: CrossModalDeviceSpec on the card — the same indices in
+ 16. device_world: CrossModalDeviceSpec on the card — the same indices in
      two batch shapes and against the CPU, the generation rate — then
      scripts/torch_bench_50m.py's pipeline at 10M rows: streamed exact
      ground truth for 4,096 queries, build_ivf_streaming (int8) from
@@ -583,7 +597,8 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
     check(flag == 0, "the gather kernel met an out-of-range index")
     return {"launches": launches, "base": base, "base_dev": base_dev,
             "eval_q": eval_q, "gt_d": gt_d, "gt_i": gt_i,
-            "train_q": train_q, "knn": knn}
+            "train_q": train_q, "knn": knn,
+            "neighbors": loaded.graph.neighbors, "ep": loaded.graph.ep}
 
 
 def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192,
@@ -970,10 +985,12 @@ def ivf_k1_blocks(gather, index) -> dict:
     return out
 
 
-def ivf_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
+def ivf_path(port, gather, world: dict, query_batch: int = 8192,
+             save_dir: str | None = None) -> dict:
     """Phase 11: IVFIndex f32 and int8 on the main world; grouped sweep,
     exactness gate, grouped vs ungrouped, streaming build, K1 at the block
-    shapes. Returns K1 launches and K1's IVF-block timings."""
+    shapes. Returns K1 launches and K1's IVF-block timings. With
+    ``save_dir`` each index is saved there as ``ivf_{store}.npz``."""
     base_dev, eval_q = world["base_dev"], world["eval_q"]
     gt_i = world["gt_i"]
     n, d = base_dev.shape
@@ -1065,6 +1082,8 @@ def ivf_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
                   f"streamed int8 recall {rec:.4f} vs in-memory "
                   f"{int8_recall:.4f}")
             del st
+        if save_dir is not None:
+            idx.save(os.path.join(save_dir, f"ivf_{store}.npz"))
         del idx
         torch.cuda.empty_cache()
     phase("ivf_k1_blocks", bit_identical=True, timings=k1_blocks)
@@ -1078,6 +1097,275 @@ def ivf_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     check(gather.error_flag_value() == 0,
           "the gather kernel met an out-of-range index (ivf)")
     return {"k1_launches": launches, "k1_blocks": k1_blocks}
+
+
+PAR_DP, PAR_MP = 2, 2          # 4 ranks on cuda:0, over gloo
+PAR_L, PAR_NPROBE = 100, 64
+PAR_NCCL_QUERIES = 1024
+PAR_TIMEOUT_S = 600
+PAR_NOTE = "ranks sharing one card: a correctness run, not a scaling figure"
+PAR_RESULT = ("ids", "dists", "cmps", "hops")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(fn, dev: torch.device):
+    """(fn(), seconds), the device drained on both sides."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _k1_shard_check(gather, table: torch.Tensor, seed: int) -> bool:
+    """K1 against gather_rows_ref on a rank's own shard table, bit for bit
+    (65,536 seeded rows, int32 indices)."""
+    idx = index_sets(table, 65536, seed, sets=1)[0]
+    got = gather.gather_rows(table, idx)
+    return torch.equal(got, gather.gather_rows_ref(table, idx))
+
+
+def _par_inputs(work: str):
+    """The phase's inputs as memory-mapped .npy files: each rank reads
+    only its rows."""
+    def load(name):
+        return np.load(os.path.join(work, name + ".npy"), mmap_mode="r")
+    return load("base"), load("neighbors"), load("eval_q")
+
+
+def _rank_build(gather, dev: torch.device):
+    """Load K1 in a rank: the parent built it, so this is a reuse (0 s)."""
+    return gather.build() if dev.type == "cuda" else None
+
+
+def parallel_rank(work: str, ep: int, device: str) -> dict:
+    """One of the phase's 4 ranks (dp=2 x mp=2, all on cuda:0, gloo): the
+    sharded kNN, distributed beam, query-parallel search and ShardedIVF
+    (f32, int8) on the 1M world, K1's launches over them, then K1 against
+    its plain version on the rank's base and neighbour shards."""
+    from mysteryann_tpu_torch import IVFIndex, parallel as par
+    from mysteryann_tpu_torch.ops import gather
+
+    mesh = par.make_mesh_distributed(dp=PAR_DP, mp=PAR_MP, device=device)
+    build_s = _rank_build(gather, mesh.device)
+    base, nbrs, q_all = _par_inputs(work)
+    b = par.shard_base(mesh, base, "mp")
+    nb = par.shard_base(mesh, nbrs, "mp")
+    q = par.shard_base(mesh, q_all, "dp")
+    full_b, full_nb = par.replicate(mesh, base), par.replicate(mesh, nbrs)
+    q_qp = par.shard_base(mesh, q_all, ("dp", "mp"))
+    eps = torch.tensor([ep], dtype=torch.int32, device=mesh.device)
+    ivfs = {s: par.ShardedIVF(mesh, IVFIndex.load(
+        os.path.join(work, f"ivf_{s}.npz"), device="cpu"))
+        for s in ("f32", "int8")}
+    beam = dict(k=K, L=PAR_L, metric=METRIC, visited_mode="pool", expand=2)
+
+    def dp_np(x):
+        return par.gather_dp(mesh, x).cpu().numpy()
+
+    gather.reset_launches()
+    out, secs = {}, {}
+    dev = mesh.device
+    (d, i), secs["knn"] = _timed(
+        lambda: par.sharded_exact_knn(mesh, q, b, K, METRIC), dev)
+    out["knn"] = {"dists": dp_np(d), "ids": dp_np(i)}
+    r, secs["beam"] = _timed(lambda: par.distributed_beam_search(
+        mesh, b, nb, eps, q, **beam), dev)
+    out["beam"] = {f: dp_np(getattr(r, f)) for f in PAR_RESULT}
+    r, secs["query_parallel"] = _timed(lambda: par.query_parallel_search(
+        mesh, full_b, full_nb, eps, q_qp, **beam), dev)
+    out["query_parallel"] = {
+        f: par.all_gather(getattr(r, f), mesh, ("dp", "mp")).cpu().numpy()
+        for f in PAR_RESULT}
+    for store, sidx in ivfs.items():
+        (ids, d), secs[f"ivf_{store}"] = _timed(
+            lambda: sidx.search(q, K, PAR_NPROBE, device_out=True), dev)
+        out[f"ivf_{store}"] = {"ids": dp_np(ids), "dists": dp_np(d)}
+    launches = gather.launches
+    k1_same = {"base_shard": _k1_shard_check(gather, b, 31),
+               "neighbor_shard": _k1_shard_check(gather, nb, 32)}
+    return {"build_s": build_s, "launches": launches, "k1_same": k1_same,
+            "secs": secs, "backend": mesh.backend,
+            "device": str(mesh.device), "coord": (mesh.coord("dp"),
+                                                  mesh.coord("mp")),
+            "error_flag": gather.error_flag_value(), "out": out}
+
+
+def parallel_nccl_rank(work: str, ep: int, device: str) -> dict:
+    """A 1x1 mesh over NCCL in one rank: each sharded function against its
+    single-device counterpart on the same inputs, bit for bit."""
+    from mysteryann_tpu_torch import IVFIndex, parallel as par
+    from mysteryann_tpu_torch.ops import gather
+    from mysteryann_tpu_torch.ops.knn import exact_knn_device
+    from mysteryann_tpu_torch.search.beam import beam_search
+
+    mesh = par.make_mesh_distributed(dp=1, mp=1, device=device)
+    build_s = _rank_build(gather, mesh.device)
+    base, nbrs, q_all = _par_inputs(work)
+    b = par.shard_base(mesh, base, "mp")
+    nb = par.shard_base(mesh, nbrs, "mp")
+    q = par.replicate(mesh, q_all[:PAR_NCCL_QUERIES])
+    eps = torch.tensor([ep], dtype=torch.int32, device=mesh.device)
+    idxs = {s: IVFIndex.load(os.path.join(work, f"ivf_{s}.npz"),
+                             device=mesh.device) for s in ("f32", "int8")}
+    beam = dict(k=K, L=PAR_L, metric=METRIC, visited_mode="pool", expand=2)
+    gather.reset_launches()
+    d, i = par.sharded_exact_knn(mesh, q, b, K, METRIC)
+    r = par.distributed_beam_search(mesh, b, nb, eps, q, **beam)
+    ivf = {s: par.ShardedIVF(mesh, idx).search(q, K, PAR_NPROBE,
+                                               device_out=True)
+           for s, idx in idxs.items()}
+    _sync(mesh.device)
+    launches = gather.launches
+    d1, i1 = exact_knn_device(q, b, K, METRIC, tile=8192)
+    r1 = beam_search(b, nb, eps, q, **beam)
+    same = {"knn": torch.equal(d, d1) and torch.equal(i, i1),
+            "beam": all(torch.equal(getattr(r, f), getattr(r1, f))
+                        for f in PAR_RESULT)}
+    for s, idx in idxs.items():
+        i1, d1 = idx.search(q, K, nprobe=PAR_NPROBE,
+                            query_batch=PAR_NCCL_QUERIES, device_out=True)
+        same[f"ivf_{s}"] = (torch.equal(ivf[s][0], i1)
+                            and torch.equal(ivf[s][1], d1))
+    return {"build_s": build_s, "launches": launches, "same": same,
+            "backend": mesh.backend, "device": str(mesh.device),
+            "error_flag": gather.error_flag_value()}
+
+
+def _agree(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a == b).mean())
+
+
+def _agree_ties(a: np.ndarray, b: np.ndarray, da: np.ndarray,
+                db: np.ndarray) -> float:
+    """Share of equal ids, counting a swap inside a run of equal
+    distances as equal (ids compared as sets where scores tie)."""
+    same = a == b
+    for i, j in zip(*np.nonzero(~same)):
+        same[i, j] = (set(a[i][da[i] == da[i, j]])
+                      == set(b[i][db[i] == db[i, j]]))
+    return float(same.mean())
+
+
+def parallel_path(port, world: dict, work: str, dev: torch.device) -> int:
+    """Phase 12: parallel/ on the 1M world. 4 ranks (dp=2 x mp=2) share
+    the card ``dev`` over gloo; each result against the port's
+    single-device call on the card; then a 1x1 mesh over NCCL in one rank,
+    bit for bit. Returns K1's launches in all ranks."""
+    from mysteryann_tpu_torch.parallel import launch
+    from mysteryann_tpu_torch.search.beam import search_batched
+
+    t0 = time.perf_counter()
+    np.save(os.path.join(work, "base.npy"), world["base"])
+    np.save(os.path.join(work, "neighbors.npy"), world["neighbors"])
+    np.save(os.path.join(work, "eval_q.npy"), world["eval_q"])
+    t_write = time.perf_counter() - t0
+    ep, n_q = int(world["ep"]), world["eval_q"].shape[0]
+    world_size = PAR_DP * PAR_MP
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.run("chip_smoke:parallel_rank", world_size,
+                           (work, ep, str(dev)), timeout=PAR_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"parallel ranks (gloo, {world_size} on one card): {e}")
+    t_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["build_s"] == 0, f"rank {r['coord']} rebuilt K1")
+        check(r["launches"] > 0, f"rank {r['coord']} launched K1 0 times")
+        check(all(r["k1_same"].values()),
+              f"K1 differs from gather_rows_ref on rank {r['coord']}'s "
+              f"shards: {r['k1_same']}")
+        check(r["error_flag"] == 0, f"rank {r['coord']}: K1 met an "
+                                    "out-of-range index")
+        for key, res in r["out"].items():
+            check(all(np.array_equal(v, r0["out"][key][f])
+                      for f, v in res.items()),
+                  f"ranks disagree on the gathered {key} results")
+    out, gt_i, gt_d = r0["out"], world["gt_i"], world["gt_d"]
+
+    # the single-device calls on the card, at the ranks' batch shapes
+    nb_dev = torch.from_numpy(world["neighbors"]).to(dev)
+    eps = torch.tensor([ep], dtype=torch.int32, device=dev)
+    rows = {}
+    knn_ids = _agree(out["knn"]["ids"], gt_i)
+    knn_close = bool(np.allclose(out["knn"]["dists"], gt_d, rtol=1e-4,
+                                 atol=1e-4))
+    rows["knn"] = {"ids_agree": knn_ids, "dists_close": knn_close}
+    check(knn_ids >= 0.999 and knn_close,
+          f"sharded kNN vs single-device: ids {knn_ids}, dists close "
+          f"{knn_close}")
+    for name, qb in (("beam", n_q // PAR_DP),
+                     ("query_parallel", n_q // world_size)):
+        ids, dists, cmps, hops = search_batched(
+            world["base_dev"], nb_dev, eps, world["eval_q"], K, PAR_L,
+            METRIC, query_batch=qb, visited_mode="pool", expand=2)
+        got = out[name]
+        rows[name] = {"ids_agree": _agree(got["ids"], ids),
+                      "hops_equal": bool(np.array_equal(got["hops"], hops)),
+                      "cmps_equal": bool(np.array_equal(got["cmps"], cmps)),
+                      "recall@10": port.compute_recall(got["ids"], gt_i, K),
+                      "single_recall@10": port.compute_recall(ids, gt_i, K)}
+        check(rows[name]["hops_equal"] and rows[name]["cmps_equal"]
+              and rows[name]["ids_agree"] >= 0.999,
+              f"{name} vs single-device beam_search: {rows[name]}")
+    del nb_dev
+    for store in ("f32", "int8"):
+        idx = port.IVFIndex.load(os.path.join(work, f"ivf_{store}.npz"),
+                                 device=dev)
+        ids, dists = idx.search(world["eval_q"], K, nprobe=PAR_NPROBE,
+                                query_batch=n_q // PAR_DP)
+        del idx
+        got = out[f"ivf_{store}"]
+        rec = port.compute_recall(got["ids"], gt_i, K)
+        rec1 = port.compute_recall(ids, gt_i, K)
+        rows[f"ivf_{store}"] = {"ids_agree": _agree(got["ids"], ids),
+                                "recall@10": rec, "single_recall@10": rec1}
+        if store == "f32":
+            close = bool(np.allclose(got["dists"], dists, rtol=1e-5,
+                                     atol=1e-5))
+            rows["ivf_f32"]["dists_close"] = close
+            check(close and rows["ivf_f32"]["ids_agree"] >= 0.99,
+                  f"ShardedIVF f32 vs single-device: {rows['ivf_f32']}")
+        else:
+            # raw s32 scores tie often: ids as sets within equal scores
+            ties = _agree_ties(got["ids"], ids, got["dists"], dists)
+            rows["ivf_int8"]["ids_agree_ties"] = ties
+            check(abs(rec - rec1) <= 0.02 and ties >= 0.99,
+                  f"ShardedIVF int8 vs single-device: recall {rec:.4f} vs "
+                  f"{rec1:.4f}, ids within ties {ties:.5f}")
+    torch.cuda.empty_cache()
+    secs = {k: max(r["secs"][k] for r in ranks) for k in r0["secs"]}
+    launches = [r["launches"] for r in ranks]
+    phase("parallel", ranks=world_size, mesh=f"{PAR_DP}x{PAR_MP}",
+          backend=r0["backend"], device=r0["device"], note=PAR_NOTE,
+          queries=n_q, L=PAR_L, nprobe=PAR_NPROBE, seconds_per_call=secs,
+          spawn_and_run_s=t_ranks, write_inputs_s=t_write,
+          k1_launches_per_rank=launches, k1_shards_bit_identical=True,
+          **rows)
+
+    t0 = time.perf_counter()
+    try:
+        nccl = launch.run("chip_smoke:parallel_nccl_rank", 1,
+                          (work, ep, str(dev)), timeout=PAR_TIMEOUT_S)[0]
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"parallel NCCL rank (1x1 mesh): {e}")
+    phase("parallel_nccl", ranks=1, mesh="1x1", backend=nccl["backend"],
+          device=nccl["device"], queries=PAR_NCCL_QUERIES,
+          bit_identical=nccl["same"], k1_launches=nccl["launches"],
+          seconds=time.perf_counter() - t0)
+    check(nccl["backend"] == "nccl", f"the 1x1 run took {nccl['backend']}")
+    check(nccl["build_s"] == 0, "the NCCL rank rebuilt K1")
+    check(nccl["launches"] > 0, "the NCCL rank launched K1 0 times")
+    check(nccl["error_flag"] == 0, "the NCCL rank: K1 met an out-of-range "
+                                   "index")
+    check(all(nccl["same"].values()),
+          f"1x1 NCCL mesh vs single-device: {nccl['same']}")
+    return sum(launches) + nccl["launches"]
 
 
 def cli_path(world: dict, gather, fused_index, tmp_root: str = HERE) -> int:
@@ -1562,7 +1850,9 @@ def main() -> None:
     fused = fused_path(port, gather, run)
     native_path(fused["index"])
     k1_bip = bipartite_path(port, gather, run)
-    ivf = ivf_path(port, gather, run)
+    with tempfile.TemporaryDirectory(dir=HERE) as work:
+        ivf = ivf_path(port, gather, run, save_dir=work)
+        k1_par = parallel_path(port, run, work, dev)
     k1_cli = cli_path(run, gather, fused["index"])
     run_launches, fused_launches = run["launches"], fused["k1_launches"]
     del run, fused      # the 1M world makes room for the larger ones
@@ -1577,7 +1867,7 @@ def main() -> None:
          "replaces": KERNEL_REPLACES,
          "launches": (run_launches + flat["k1_launches"]
                       + fused_launches + k1_bip + ivf["k1_launches"]
-                      + k1_cli + k1_large + k1_world),
+                      + k1_par + k1_cli + k1_large + k1_world),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},

@@ -184,6 +184,29 @@ def _ivf_merge(cand_ids, cand_d, slots, valid, k: int):
     return ci.gather(1, pos), vals
 
 
+def _ivf_probe_scan(q, qmap, slots, valid, blocks, block_ids, k: int,
+                    store: str, metric: Metric, cap: int, n_base: int,
+                    gscale: float):
+    """The grouped scan of the probed clusters and the merge: each query's
+    best ``k`` (ids, dists) over the clusters of ``blocks`` it probes.
+    int8 stores quantize each query by its own scale and report the raw
+    -s32 scores as approximate f32 -IP (/ (query scale · ``gscale``))."""
+    if store == "int8":
+        amax = torch.clamp(torch.amax(torch.abs(q), dim=1), min=1e-30)
+        # a true division: `127.0 / tensor` is reciprocal-then-multiply
+        qs = torch.full_like(amax, 127.0) / amax
+        q_i8 = torch.clamp(torch.round(q * qs[:, None]),
+                           -127, 127).to(torch.int8)
+        cand_ids, cand_d = _ivf_scan_grouped_i8(
+            q_i8, qmap, blocks, block_ids, k=k, cap=cap, n_base=n_base)
+        ids, vals = _ivf_merge(cand_ids, cand_d, slots, valid, k=k)
+        return ids, vals / (qs[:, None] * gscale)
+    cand_ids, cand_d = _ivf_scan_grouped(
+        q, qmap, blocks, block_ids, k=k, metric=metric, cap=cap,
+        n_base=n_base)
+    return _ivf_merge(cand_ids, cand_d, slots, valid, k=k)
+
+
 def _ivf_rerank(q, ids, vals, base_f32, k: int, metric: Metric, n_base: int):
     """Exact-f32 rerank of merged candidates: gather each candidate's f32
     row (K1) and recompute the true distance (invalid slots keep inf)."""
@@ -491,23 +514,10 @@ class IVFIndex:
         top_c = _ivf_topc(q, self.centroids, nprobe, self.metric)
         qmap, slots, valid = _ivf_group(top_c, self.n_clusters, qmax)
         kk = max(k, rerank)
-        if self.store == "int8":
-            amax = torch.clamp(torch.amax(torch.abs(q), dim=1), min=1e-30)
-            # a true division: `127.0 / tensor` is reciprocal-then-multiply
-            qs = torch.full_like(amax, 127.0) / amax
-            q_i8 = torch.clamp(torch.round(q * qs[:, None]),
-                               -127, 127).to(torch.int8)
-            cand_ids, cand_d = _ivf_scan_grouped_i8(
-                q_i8, qmap, self.blocks, self.block_ids, k=kk, cap=self.cap,
-                n_base=self.n_base)
-            ids, vals = _ivf_merge(cand_ids, cand_d, slots, valid, k=kk)
-            # raw -s32 -> approximate f32 -IP for reporting
-            vals = vals / (qs[:, None] * self.gscale)
-        else:
-            cand_ids, cand_d = _ivf_scan_grouped(
-                q, qmap, self.blocks, self.block_ids, k=kk,
-                metric=self.metric, cap=self.cap, n_base=self.n_base)
-            ids, vals = _ivf_merge(cand_ids, cand_d, slots, valid, k=kk)
+        ids, vals = _ivf_probe_scan(
+            q, qmap, slots, valid, self.blocks, self.block_ids, k=kk,
+            store=self.store, metric=self.metric, cap=self.cap,
+            n_base=self.n_base, gscale=self.gscale)
         if rerank:
             if self.base_f32 is None:
                 raise ValueError("rerank needs keep_f32=True at build")

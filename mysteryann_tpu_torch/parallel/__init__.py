@@ -1,0 +1,17 @@
+from mysteryann_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    all_gather,
+    gather_dp,
+    init_distributed,
+    make_mesh,
+    make_mesh_distributed,
+    psum,
+    replicate,
+    shard_base,
+)
+from mysteryann_tpu_torch.parallel.sharded_knn import sharded_exact_knn  # noqa: F401
+from mysteryann_tpu_torch.parallel.sharded_search import (  # noqa: F401
+    distributed_beam_search,
+    query_parallel_search,
+)
+from mysteryann_tpu_torch.parallel.sharded_ivf import ShardedIVF  # noqa: F401

@@ -104,19 +104,6 @@ def _first_occurrence(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(dup).scatter_(1, si, ~dup)
 
 
-def _hop2(neighbors: torch.Tensor, hop1: torch.Tensor,
-          n_total: int) -> torch.Tensor:
-    """The neighbours of the hop-1 ids ``hop1`` [B, c] (sentinel ``n_total``
-    rows stay all-sentinel), flattened to a [B, c·M] fan-out."""
-    B, c = hop1.shape
-    rows = gather_rows_any(neighbors,
-                           torch.clamp(hop1, max=n_total - 1).reshape(-1))
-    rows = rows.reshape(B, c, neighbors.shape[1])
-    rows = torch.where((hop1 < n_total)[:, :, None], rows,
-                       torch.full_like(rows, n_total))
-    return rows.reshape(B, -1)
-
-
 def beam_search(
     base: torch.Tensor,            # f32 [N, d] (metric-preprocessed)
     neighbors: torch.Tensor,       # int32 [N(+Nq), M_pad], sentinel >= n_total
@@ -166,32 +153,61 @@ def beam_search(
     metric = Metric.parse(metric)
     if k > L:
         raise ValueError(f"k ({k}) must be <= L ({L})")
+    n_base, d = base.shape
+    n_total, M = neighbors.shape
+    B = queries.shape[0]
+
+    def rows_of(ids):   # int32 [B, c] -> [B, c, M], sentinel rows past n_total
+        rows = gather_rows_any(neighbors, torch.clamp(ids, max=n_total - 1)
+                               .reshape(-1)).reshape(ids.shape + (M,))
+        return torch.where((ids < n_total)[..., None], rows,
+                           torch.full_like(rows, n_total))
+
+    def dists_of(ids):  # int32 [B, F] base ids (clamped) -> f32 [B, F]
+        flat = torch.clamp(ids, max=n_base - 1).reshape(-1)
+        vecs = gather_rows_any(base, flat).reshape(ids.shape + (d,))
+        return _batch_dist(queries, vecs, metric)
+
+    # ---- seed pool with entry points -------------------------------------
+    if seed_ids is not None:
+        ep_ids = seed_ids.to(torch.int32)
+        ep_d = seed_d if seed_d is not None else dists_of(ep_ids)
+    else:
+        ep_ids = eps.to(torch.int32)[None, :].expand(B, eps.shape[0])
+        ep_d = dists_of(ep_ids)
+    return lockstep(ep_ids, ep_d, rows_of, dists_of, k=k, L=L, n_base=n_base,
+                    n_total=n_total, M=M, max_hops=max_hops,
+                    expand=1 if two_hop else expand, two_hop=two_hop,
+                    two_hop_chunk=two_hop_chunk, visited_mode=visited_mode,
+                    collect_expanded=collect_expanded)
+
+
+def lockstep(ep_ids: torch.Tensor, ep_d: torch.Tensor,
+             rows_of: Callable[[torch.Tensor], torch.Tensor],
+             dists_of: Callable[[torch.Tensor], torch.Tensor], *,
+             k: int, L: int, n_base: int, n_total: int, M: int,
+             max_hops: int = 0, expand: int = 1, two_hop: bool = False,
+             two_hop_chunk: int = 0, visited_mode: str = "bitmask",
+             collect_expanded: int = 0) -> SearchResult:
+    """The lockstep loop behind `beam_search`, from a seeded pool (``ep_ids``
+    / ``ep_d`` [B, E]) to the result. Rows and distances come from the
+    caller: ``rows_of(ids [B, c])`` gives the neighbour rows [B, c, M] of
+    global ids (all-sentinel rows for ids >= ``n_total``), ``dists_of(ids
+    [B, F])`` the queries' distances to base ids (< ``n_base``; entries
+    that are not fresh are ignored). `beam_search` reads them from one
+    device's tables; ``parallel.distributed_beam_search`` from row-sharded
+    ones. The loop's control flow reads only the pool, so every caller that
+    holds the same pool takes the same steps and makes the same calls."""
     if visited_mode not in ("bitmask", "pool", "merge"):
         raise ValueError(f"unknown visited_mode {visited_mode!r}")
     use_bitmask = visited_mode == "bitmask"
     use_merge = visited_mode == "merge"
-    dev = base.device
+    dev = ep_d.device
     i32 = torch.int32
-    n_base, d = base.shape
-    n_total, M = neighbors.shape
-    B = queries.shape[0]
+    B, E = ep_ids.shape
     if max_hops <= 0:
         max_hops = 4 * L + 32
     n_words = -(-n_base // 32) if use_bitmask else 1
-
-    def gather_vecs(ids):  # ids int32 [...], clamped row gather
-        flat = torch.clamp(ids, max=n_base - 1).reshape(-1)
-        return gather_rows_any(base, flat).reshape(ids.shape + (d,))
-
-    # ---- seed pool with entry points -------------------------------------
-    if seed_ids is not None:
-        ep_ids = seed_ids.to(i32)
-        ep_d = (seed_d if seed_d is not None
-                else _batch_dist(queries, gather_vecs(ep_ids), metric))
-    else:
-        ep_ids = eps.to(i32)[None, :].expand(B, eps.shape[0])
-        ep_d = _batch_dist(queries, gather_vecs(ep_ids), metric)
-    E = ep_ids.shape[1]
     pad = L - E
     if pad < 0:
         raise ValueError(f"L={L} must be >= number of entry points E={E}")
@@ -219,7 +235,7 @@ def beam_search(
     hist_ids = torch.full((B, H + 1), n_total, dtype=i32, device=dev)
     hist_d = torch.full((B, H + 1), _INF, device=dev)
 
-    e = 1 if two_hop else expand
+    e = expand
     L_iota = torch.arange(L, dtype=i32, device=dev).expand(B, L)
     e_iota = torch.arange(e, dtype=i32, device=dev)[None, :]
 
@@ -246,7 +262,7 @@ def beam_search(
                 _scatter_or_bits(visited, words, bits, fresh)
 
         # -- distances for fresh neighbours --------------------------------
-        nd = _batch_dist(queries, gather_vecs(nb_c), metric)
+        nd = dists_of(nb_c)
         nd = torch.where(fresh, nd, torch.full_like(nd, _INF))
         new_ids = torch.where(fresh, nbrs, torch.full_like(nbrs, n_total))
         cmps.add_(torch.sum(fresh, dim=1, dtype=i32))
@@ -304,11 +320,8 @@ def beam_search(
                                                 device=dev)], dim=1)
         cand_exp = exp_p.scatter_(1, sel_set, True)[:, :L]
 
-        # -- gather neighbour rows (row-gather kernel) ---------------------
-        cur_c = torch.clamp(cur, max=n_total - 1)
-        nbrs = gather_rows_any(neighbors, cur_c.reshape(-1)).reshape(B, e, M)
-        nbrs = torch.where((cur < n_total)[:, :, None], nbrs,
-                           torch.full_like(nbrs, n_total))
+        # -- neighbour rows ------------------------------------------------
+        nbrs = rows_of(cur)                                         # [B, e, M]
         if not two_hop:
             fanouts = [nbrs.reshape(B, e * M)]
         else:
@@ -316,7 +329,7 @@ def beam_search(
             # chunk of c hop-1 rows (all M at once without chunking)
             c = two_hop_chunk if 0 < two_hop_chunk < M else M
             nbrs1 = nbrs.reshape(B, M)       # two_hop forces e == 1
-            fanouts = (_hop2(neighbors, nbrs1[:, s: s + c], n_total)
+            fanouts = (rows_of(nbrs1[:, s: s + c]).reshape(B, -1)
                        for s in range(0, M, c))
         for fan in fanouts:
             cand_ids, cand_d, cand_exp = process(cand_ids, cand_d, cand_exp,

@@ -11,8 +11,9 @@ by `torch.cuda.synchronize()`, and each row is the median of 3 trials after
 2 discarded.
 
 `--sharded-fused MP` (the 10M graph served from byte rows sharded over MP
-devices) needs the port's `parallel/` package, which is not ported yet:
-the flag is parsed and the script exits 2 with a message.
+devices) needs `mysteryann_tpu_torch.parallel.sharded_fused`
+(ShardedFusedSearcher), which the port's `parallel/` package does not have
+yet: the flag is parsed and the script exits 2 with a message.
 
 Run on the card:  python scripts/torch_bench_10m.py [--skip-flat]
                   [--skip-ivf] [--only-ivf] [--no_cache]
@@ -55,16 +56,16 @@ def main(argv=None):
     ap.add_argument("--skip-flat", action="store_true")
     ap.add_argument("--skip-ivf", action="store_true")
     ap.add_argument("--sharded-fused", type=int, metavar="MP", default=0,
-                    help="not available yet: needs the parallel package")
+                    help="not available yet: needs parallel.sharded_fused")
     ap.add_argument("--cache_dir", default=default_cache_dir(__file__))
     ap.add_argument("--no_cache", action="store_true",
                     help="compute everything, write nothing to disk")
     add_device_flag(ap)
     args = ap.parse_args(argv)
     if args.sharded_fused:
-        log("--sharded-fused needs mysteryann_tpu_torch.parallel "
-            "(ShardedFusedSearcher over torch.distributed), which is not "
-            "ported yet; run without it")
+        log("--sharded-fused needs mysteryann_tpu_torch.parallel."
+            "sharded_fused (ShardedFusedSearcher over torch.distributed), "
+            "which is not ported yet; run without it")
         sys.exit(2)
     dev = device_from(ap, args)
 

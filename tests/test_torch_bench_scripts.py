@@ -170,7 +170,7 @@ def test_bench_10m_sharded_fused_waits_for_the_parallel_package(capsys):
     with pytest.raises(SystemExit) as e:
         _script("torch_bench_10m").main(["--sharded-fused", "4"] + CPU)
     assert e.value.code == 2
-    assert "parallel" in capsys.readouterr().err
+    assert "parallel.sharded_fused" in capsys.readouterr().err
 
 
 def test_bench_50m_tiny(tmp_path, capsys):
