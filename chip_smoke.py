@@ -68,7 +68,17 @@ Phases, one line each before the last:
      gather_rows_ref on the rank's base and neighbour shards; then a 1x1
      mesh over NCCL in one rank, bit for bit against single-device on 1,024
      queries. Ranks sharing one card: a correctness run, not a scaling
-     figure;
+     figure. Then the second slice of parallel/ in 4 more ranks: (a)
+     ShardedFusedSearcher on the phase-7 graph over all eval queries —
+     the Fused cell's serving (max_degree 48, bits 8; (expand, seeds, L) =
+     (4, 40, 48), (4, 40, 112)) and torch_bench_10m.py's (max_degree 32,
+     bits 4; (4, 40, 64)) — each against FusedSearcher on the card at the
+     ranks' batch (ids, dists, cmps, hops equal); (b) sharded_build_roargraph on
+     the first 100,000 base rows and 20,000 train queries with the Classic
+     recipe, against build_roargraph on the card at the ranks' batches (the
+     same graph); K1 equal to gather_rows_ref on each rank's byte-row,
+     rerank-base and build shards; the NCCL rank adds one sharded fused row
+     on 1,024 queries, bit for bit;
  13. cli: the port's compute_gt, search_flat (int8) and search_roargraph
      (--engine fused, seeded) CLIs through their main() on the same world
      written as .fbin files; then export_fbin, build_bipartite →
@@ -1105,6 +1115,17 @@ PAR_NCCL_QUERIES = 1024
 PAR_TIMEOUT_S = 600
 PAR_NOTE = "ranks sharing one card: a correctness run, not a scaling figure"
 PAR_RESULT = ("ids", "dists", "cmps", "hops")
+# ShardedFusedSearcher rows: (max_degree, seed_sample, bits, ((expand,
+# seeds, L), ...)) — the Fused cell's serving, then torch_bench_10m.py's
+SHF_CONFIGS = ((SEED_MAX_DEGREE, SEED_SAMPLE, 8, ((4, 40, 48), (4, 40, 112))),
+               (32, 2, 4, ((4, 40, 64),)))
+# the sharded build: the Classic recipe (main_path) on a slice of the world
+SHB_N, SHB_TRAIN = 100_000, 20_000
+SHB_CFG = dict(M_sq=64, M_pjbp=32, L_pjpq=128, metric=METRIC,
+               query_batch=8192, search_batch=8192, connectivity_passes=1,
+               connectivity_engine="classic", connectivity_expand=4)
+SHB_REDUCED = (f"the first {SHB_N:,} base rows and {SHB_TRAIN:,} train "
+               "queries of the 1M world")
 
 
 def _sync(dev: torch.device) -> None:
@@ -1195,10 +1216,11 @@ def parallel_rank(work: str, ep: int, device: str) -> dict:
             "error_flag": gather.error_flag_value(), "out": out}
 
 
-def parallel_nccl_rank(work: str, ep: int, device: str) -> dict:
+def parallel_nccl_rank(work: str, ep: int, fused_ep: int,
+                       device: str) -> dict:
     """A 1x1 mesh over NCCL in one rank: each sharded function against its
     single-device counterpart on the same inputs, bit for bit."""
-    from mysteryann_tpu_torch import IVFIndex, parallel as par
+    from mysteryann_tpu_torch import FusedSearcher, IVFIndex, parallel as par
     from mysteryann_tpu_torch.ops import gather
     from mysteryann_tpu_torch.ops.knn import exact_knn_device
     from mysteryann_tpu_torch.search.beam import beam_search
@@ -1219,6 +1241,12 @@ def parallel_nccl_rank(work: str, ep: int, device: str) -> dict:
     ivf = {s: par.ShardedIVF(mesh, idx).search(q, K, PAR_NPROBE,
                                                device_out=True)
            for s, idx in idxs.items()}
+    index = _fused_index(work, fused_ep)
+    max_degree, sample, bits, rows = SHF_CONFIGS[0]
+    expand, seeds, L = rows[0]
+    fused = dict(expand=expand, seeds=min(seeds, L), device_out=True)
+    sf = par.ShardedFusedSearcher(mesh, index, base, max_degree, sample,
+                                  bits).search(q, K, L, **fused)
     _sync(mesh.device)
     launches = gather.launches
     d1, i1 = exact_knn_device(q, b, K, METRIC, tile=8192)
@@ -1231,6 +1259,11 @@ def parallel_nccl_rank(work: str, ep: int, device: str) -> dict:
                             query_batch=PAR_NCCL_QUERIES, device_out=True)
         same[f"ivf_{s}"] = (torch.equal(ivf[s][0], i1)
                             and torch.equal(ivf[s][1], d1))
+    sf1 = FusedSearcher(index, b, max_degree=max_degree, seed_sample=sample,
+                        bits=bits).search(q, K, L, query_batch=q.shape[0],
+                                          visited_mode="merge", **fused)
+    same[f"sharded_fused_bits{bits}_L{L}"] = all(
+        torch.equal(x, y) for x, y in zip(sf, sf1))
     return {"build_s": build_s, "launches": launches, "same": same,
             "backend": mesh.backend, "device": str(mesh.device),
             "error_flag": gather.error_flag_value()}
@@ -1251,11 +1284,190 @@ def _agree_ties(a: np.ndarray, b: np.ndarray, da: np.ndarray,
     return float(same.mean())
 
 
+def _fused_index(work: str, ep: int):
+    """The phase-7 graph as a RoarGraphIndex, its rows memory-mapped."""
+    from mysteryann_tpu_torch.graph import PaddedGraph, RoarGraphIndex
+    from mysteryann_tpu_torch.ops.distances import Metric
+    nb = np.load(os.path.join(work, "fused_neighbors.npy"), mmap_mode="r")
+    return RoarGraphIndex(graph=PaddedGraph(neighbors=nb, ep=ep),
+                          metric=Metric.parse(METRIC), dim=DIM)
+
+
+def sharded_rank(work: str, fused_ep: int, n_build: int,
+                 device: str) -> dict:
+    """One of 4 ranks (dp=2 x mp=2 on cuda:0, gloo) for parallel/'s second
+    slice: (a) ShardedFusedSearcher over SHF_CONFIGS on the phase-7 graph;
+    (b) sharded_build_roargraph with SHB_CFG on the world's slice; K1's
+    launches over each, then K1 against its plain version on the rank's
+    byte-row table, rerank base and build shards."""
+    from mysteryann_tpu_torch import parallel as par
+    from mysteryann_tpu_torch.ops import gather
+    from mysteryann_tpu_torch.ops.distances import prepare_vectors
+    from mysteryann_tpu_torch.utils.params import BuildConfig
+    from mysteryann_tpu_torch.utils.trace import tracer
+
+    mesh = par.make_mesh_distributed(dp=PAR_DP, mp=PAR_MP, device=device)
+    build_s = _rank_build(gather, mesh.device)
+    dev = mesh.device
+    base, _, q_all = _par_inputs(work)
+    q = par.shard_base(mesh, q_all, "dp")
+    index = _fused_index(work, fused_ep)
+    out, secs, k1_same = {}, {}, {}
+    gather.reset_launches()
+    for max_degree, sample, bits, rows in SHF_CONFIGS:
+        sf, secs[f"init_bits{bits}"] = _timed(
+            lambda: par.ShardedFusedSearcher(mesh, index, base, max_degree,
+                                             sample, bits), dev)
+        for expand, seeds, L in rows:
+            r, secs[f"bits{bits}_L{L}"] = _timed(lambda: sf.search(
+                q, K, L, expand=expand, seeds=min(seeds, L),
+                device_out=True), dev)
+            out[f"bits{bits}_L{L}"] = {
+                f: par.gather_dp(mesh, x).cpu().numpy()
+                for f, x in zip(PAR_RESULT, r)}
+        n_fused = gather.launches
+        k1_same[f"byte_rows_bits{bits}"] = _k1_shard_check(gather, sf.table,
+                                                          33 + bits)
+        k1_same[f"rerank_base_bits{bits}"] = _k1_shard_check(
+            gather, sf.base_sh, 34 + bits)
+        gather.launches = n_fused
+        del sf
+        torch.cuda.empty_cache()
+    fused_launches = gather.launches
+
+    train = np.load(os.path.join(work, "shb_train.npy"))
+    knn = np.load(os.path.join(work, "shb_knn.npy"))
+    tr = tracer()
+    tr.reset()
+    gather.reset_launches()
+    idx, secs["build"] = _timed(lambda: par.sharded_build_roargraph(
+        mesh, base[:n_build], train, knn, BuildConfig(**SHB_CFG)), dev)
+    build_launches = gather.launches
+    spans = {k: v["total_s"] for k, v in tr.summary()["spans"].items()}
+    # the build's shards: its base rows and a table of the supply graph's
+    # shard shape and dtype ([N/mp, 2M] int32: the built graph's rows)
+    k1_same["build_base_shard"] = _k1_shard_check(gather, par.shard_base(
+        mesh, prepare_vectors(base[:n_build], METRIC, dev), "mp"), 35)
+    k1_same["build_supply_shard"] = _k1_shard_check(
+        gather, par.shard_base(mesh, idx.graph.neighbors, "mp"), 36)
+    return {"build_s": build_s, "fused_launches": fused_launches,
+            "build_launches": build_launches, "k1_same": k1_same,
+            "secs": secs, "spans": spans, "coord": (mesh.coord("dp"),
+                                                    mesh.coord("mp")),
+            "error_flag": gather.error_flag_value(), "out": out,
+            "graph": (idx.graph.ep, idx.graph.neighbors)}
+
+
+def sharded_path(port, world: dict, work: str, dev: torch.device) -> int:
+    """Phase 12, second part: parallel/'s second slice in 4 ranks sharing
+    the card (``sharded_rank``), each result against the port's
+    single-device call on the card at the ranks' batch shapes. Returns
+    K1's launches in all ranks."""
+    from mysteryann_tpu_torch.ops.knn import exact_knn_device
+    from mysteryann_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    train = world["train_q"][:SHB_TRAIN]
+    _, knn = exact_knn_device(
+        torch.from_numpy(train).to(dev), world["base_dev"][:SHB_N],
+        k=SHB_CFG["M_sq"], metric=METRIC)
+    np.save(os.path.join(work, "shb_train.npy"), train)
+    np.save(os.path.join(work, "shb_knn.npy"), knn.cpu().numpy())
+    t_knn = time.perf_counter() - t0
+    ep, n_q = int(world["fused_ep"]), world["eval_q"].shape[0]
+    world_size = PAR_DP * PAR_MP
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.run("chip_smoke:sharded_rank", world_size,
+                           (work, ep, SHB_N, str(dev)),
+                           timeout=PAR_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"sharded ranks (gloo, {world_size} on one card): {e}")
+    t_ranks = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["build_s"] == 0, f"rank {r['coord']} rebuilt K1")
+        check(r["fused_launches"] > 0 and r["build_launches"] > 0,
+              f"rank {r['coord']} launched K1 0 times: fused "
+              f"{r['fused_launches']}, build {r['build_launches']}")
+        check(all(r["k1_same"].values()),
+              f"K1 differs from gather_rows_ref on rank {r['coord']}'s "
+              f"shards: {r['k1_same']}")
+        check(r["error_flag"] == 0, f"rank {r['coord']}: K1 met an "
+                                    "out-of-range index")
+        for key, res in r["out"].items():
+            check(all(np.array_equal(v, r0["out"][key][f])
+                      for f, v in res.items()),
+                  f"ranks disagree on the gathered {key} results")
+        check(r["graph"][0] == r0["graph"][0]
+              and np.array_equal(r["graph"][1], r0["graph"][1]),
+              f"rank {r['coord']} built another graph than rank 0")
+
+    # (a) against FusedSearcher on the card at the ranks' batch
+    index, gt_i = _fused_index(work, ep), world["gt_i"]
+    rows = {}
+    for max_degree, sample, bits, cfg_rows in SHF_CONFIGS:
+        fs = port.FusedSearcher(index, world["base_dev"],
+                                max_degree=max_degree, seed_sample=sample,
+                                bits=bits)
+        for expand, seeds, L in cfg_rows:
+            name = f"bits{bits}_L{L}"
+            want = fs.search(world["eval_q"], K, L, query_batch=n_q // PAR_DP,
+                             visited_mode="merge", expand=expand,
+                             seeds=min(seeds, L))
+            got = r0["out"][name]
+            same = {f: bool(np.array_equal(got[f], w))
+                    for f, w in zip(PAR_RESULT, want)}
+            rows[name] = {"max_degree": max_degree, "expand": expand,
+                          "seeds": seeds, "L_pq": L, "equal": same,
+                          "recall@10": port.compute_recall(got["ids"], gt_i,
+                                                           K),
+                          "single_recall@10": port.compute_recall(
+                              want[0], gt_i, K),
+                          "seconds": max(r["secs"][name] for r in ranks)}
+            check(all(same.values()), f"ShardedFusedSearcher {name} vs "
+                                      f"FusedSearcher: {same}")
+        del fs
+        torch.cuda.empty_cache()
+
+    # (b) against build_roargraph on the card at the ranks' batches
+    cfg = dict(SHB_CFG, query_batch=SHB_CFG["query_batch"] // PAR_DP,
+               search_batch=SHB_CFG["search_batch"] // PAR_DP)
+    t0 = time.perf_counter()
+    want = port.build_roargraph(world["base_dev"][:SHB_N], train,
+                                knn.cpu().numpy(), port.BuildConfig(**cfg),
+                                verbose=False).graph
+    t_single = time.perf_counter() - t0
+    ep_g, nb_g = r0["graph"]
+    diff = np.nonzero((nb_g != want.neighbors).any(axis=1))[0]
+    st = port.PaddedGraph(neighbors=nb_g, ep=ep_g).degree_stats()
+    build = {"n": SHB_N, "train": SHB_TRAIN, "reduced": SHB_REDUCED,
+             "ep_equal": ep_g == want.ep, "rows_differing": int(diff.size),
+             "first_differing_row": int(diff[0]) if diff.size else None,
+             "degree": st, "single_device_s": t_single,
+             "seconds": max(r["secs"]["build"] for r in ranks),
+             "phases_s_rank0": r0["spans"]}
+    check(ep_g == want.ep and diff.size == 0,
+          f"sharded build vs build_roargraph: {build}")
+    fused_l = [r["fused_launches"] for r in ranks]
+    build_l = [r["build_launches"] for r in ranks]
+    phase("parallel_sharded", ranks=world_size, mesh=f"{PAR_DP}x{PAR_MP}",
+          note=PAR_NOTE, queries=n_q, fused=rows, build=build,
+          seconds_per_call={k: max(r["secs"][k] for r in ranks)
+                            for k in r0["secs"]},
+          train_knn_s=t_knn, spawn_and_run_s=t_ranks,
+          k1_launches_fused_per_rank=fused_l,
+          k1_launches_build_per_rank=build_l,
+          k1_shards_bit_identical=True)
+    return sum(fused_l) + sum(build_l)
+
+
 def parallel_path(port, world: dict, work: str, dev: torch.device) -> int:
     """Phase 12: parallel/ on the 1M world. 4 ranks (dp=2 x mp=2) share
     the card ``dev`` over gloo; each result against the port's
-    single-device call on the card; then a 1x1 mesh over NCCL in one rank,
-    bit for bit. Returns K1's launches in all ranks."""
+    single-device call on the card; then the second slice
+    (`sharded_path`) and a 1x1 mesh over NCCL in one rank, bit for bit.
+    Returns K1's launches in all ranks."""
     from mysteryann_tpu_torch.parallel import launch
     from mysteryann_tpu_torch.search.beam import search_batched
 
@@ -1263,6 +1475,8 @@ def parallel_path(port, world: dict, work: str, dev: torch.device) -> int:
     np.save(os.path.join(work, "base.npy"), world["base"])
     np.save(os.path.join(work, "neighbors.npy"), world["neighbors"])
     np.save(os.path.join(work, "eval_q.npy"), world["eval_q"])
+    np.save(os.path.join(work, "fused_neighbors.npy"),
+            world["fused_neighbors"])
     t_write = time.perf_counter() - t0
     ep, n_q = int(world["ep"]), world["eval_q"].shape[0]
     world_size = PAR_DP * PAR_MP
@@ -1347,11 +1561,13 @@ def parallel_path(port, world: dict, work: str, dev: torch.device) -> int:
           spawn_and_run_s=t_ranks, write_inputs_s=t_write,
           k1_launches_per_rank=launches, k1_shards_bit_identical=True,
           **rows)
+    k1_sharded = sharded_path(port, world, work, dev)
 
     t0 = time.perf_counter()
     try:
         nccl = launch.run("chip_smoke:parallel_nccl_rank", 1,
-                          (work, ep, str(dev)), timeout=PAR_TIMEOUT_S)[0]
+                          (work, ep, int(world["fused_ep"]), str(dev)),
+                          timeout=PAR_TIMEOUT_S)[0]
     except (RuntimeError, TimeoutError) as e:
         fail(f"parallel NCCL rank (1x1 mesh): {e}")
     phase("parallel_nccl", ranks=1, mesh="1x1", backend=nccl["backend"],
@@ -1365,7 +1581,7 @@ def parallel_path(port, world: dict, work: str, dev: torch.device) -> int:
                                    "index")
     check(all(nccl["same"].values()),
           f"1x1 NCCL mesh vs single-device: {nccl['same']}")
-    return sum(launches) + nccl["launches"]
+    return sum(launches) + k1_sharded + nccl["launches"]
 
 
 def cli_path(world: dict, gather, fused_index, tmp_root: str = HERE) -> int:
@@ -1848,6 +2064,8 @@ def main() -> None:
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
     flat = flat_path(port, gather, scan, run)
     fused = fused_path(port, gather, run)
+    run["fused_neighbors"] = fused["index"].graph.neighbors
+    run["fused_ep"] = fused["index"].graph.ep
     native_path(fused["index"])
     k1_bip = bipartite_path(port, gather, run)
     with tempfile.TemporaryDirectory(dir=HERE) as work:

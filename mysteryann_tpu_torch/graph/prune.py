@@ -48,15 +48,22 @@ def batched_occlusion_prune(
     src_ids: torch.Tensor,      # i32 [B] — its id (excluded from candidates)
     cand_ids: torch.Tensor,     # i32 [B, C] — sentinel >= N marks empty slots
     cand_dists: torch.Tensor,   # f32 [B, C] — distance(candidate, src)
-    base: torch.Tensor,         # f32 [N, d]
+    base: torch.Tensor | None,  # f32 [N, d]; None with gather_fn + n_base
     cap: int,
     metric: Metric = Metric.IP,
     fill: bool = True,
     not_seedable: torch.Tensor | None = None,  # bool [B, C]
     two_pass: bool = False,
     cand_vecs: torch.Tensor | None = None,  # f32 [B, C, d], pre-gathered rows
+    gather_fn=None,             # flat ids [K] -> vecs [K, d]; default: base
+    n_base: int = 0,            # N when base is None (sharded callers)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Return (pruned_ids i32 [B, cap] sentinel-padded, counts i32 [B]).
+
+    ``gather_fn`` decouples the scan from where the vectors live: the
+    sharded build (``parallel.sharded_build``, base row-sharded over
+    ``mp``) fetches them by an owner-masked psum and runs this same
+    keep-scan, so sharded and single-device prunes agree by construction.
 
     ``cand_vecs`` ([B, C, d], aligned with ``cand_ids``) reuses the
     candidate rows a caller already fetched (``dists_to_src``
@@ -65,7 +72,9 @@ def batched_occlusion_prune(
     gather after the sort.
     """
     metric = Metric.parse(metric)
-    n = base.shape[0]
+    n = base.shape[0] if base is not None else n_base
+    if n <= 0:
+        raise ValueError("batched_occlusion_prune needs base or n_base")
     B, C = cand_ids.shape
     dev = cand_ids.device
 
@@ -94,7 +103,8 @@ def batched_occlusion_prune(
         vecs = cand_vecs.gather(1, perm.long()[:, :, None].expand(B, C, d))
     else:
         flat_ids = torch.clamp(id_s, 0, n - 1).reshape(-1)
-        vecs = gather_rows_any(base, flat_ids).reshape(B, C, -1)
+        vecs = (gather_rows_any(base, flat_ids) if gather_fn is None
+                else gather_fn(flat_ids)).reshape(B, C, -1)
     ip = torch.bmm(vecs, vecs.transpose(1, 2))
     if metric in (Metric.IP, Metric.COSINE):
         pd = -ip
@@ -160,18 +170,20 @@ def batched_occlusion_prune(
 
 
 def dists_to_src(src_vecs: torch.Tensor, cand_ids: torch.Tensor,
-                 base: torch.Tensor, metric: Metric = Metric.IP,
-                 return_vecs: bool = False):
+                 base: torch.Tensor | None, metric: Metric = Metric.IP,
+                 return_vecs: bool = False, gather_fn=None, n_base: int = 0):
     """distance(candidate[b, c], src[b]) for prune inputs; [B, C].
 
     ``return_vecs=True`` also returns the gathered candidate rows
     [B, C, d] so the caller can hand them to `batched_occlusion_prune`
     (``cand_vecs=``) instead of fetching the same rows again.
+    ``gather_fn`` / ``n_base``: as in `batched_occlusion_prune`.
     """
     metric = Metric.parse(metric)
-    n = base.shape[0]
+    n = base.shape[0] if base is not None else n_base
     flat = torch.clamp(cand_ids, 0, n - 1).reshape(-1)
-    vecs = gather_rows_any(base, flat).reshape(
+    vecs = (gather_rows_any(base, flat) if gather_fn is None
+            else gather_fn(flat)).reshape(
         cand_ids.shape + (src_vecs.shape[-1],))
     ip = torch.bmm(vecs, src_vecs[:, :, None])[:, :, 0]
     if metric in (Metric.IP, Metric.COSINE):

@@ -343,10 +343,15 @@ def _batched_prune_rows(
     fill: bool,
     not_seedable=None,           # [K, C] bool
     two_pass: bool = False,
+    gather_fn=None,
+    n_base: int = 0,
 ) -> torch.Tensor:
     """Run the occlusion prune over row batches; returns [K, cap] ids on
-    ``base_dev``'s device."""
-    dev = base_dev.device
+    ``base_dev``'s device. ``gather_fn`` (flat ids → vectors) and
+    ``n_base`` stand in for a ``base_dev`` of None, as in
+    `batched_occlusion_prune`; ``cand`` is then a tensor on the device."""
+    dev = base_dev.device if base_dev is not None else cand.device
+    gather = gather_fn or functools.partial(gather_rows_any, base_dev)
     node_ids = _to_dev(node_ids, dev)
     cand = _to_dev(cand, dev)
     if not_seedable is not None:
@@ -361,14 +366,16 @@ def _batched_prune_rows(
         ids_b = node_ids[s: s + batch]
         cand_b = cand[s: s + batch]
         ns_b = None if not_seedable is None else not_seedable[s: s + batch]
-        src_vecs = gather_rows_any(base_dev, ids_b)
+        src_vecs = gather(ids_b)
         # return_vecs: reuse the candidate rows in the prune instead of
         # gathering them a second time
         cd, cv = dists_to_src(src_vecs, cand_b, base_dev, metric,
-                              return_vecs=True)
+                              return_vecs=True, gather_fn=gather_fn,
+                              n_base=n_base)
         pruned, _ = batched_occlusion_prune(
             src_vecs, ids_b, cand_b, cd, base_dev, cap=cap, metric=metric,
-            fill=fill, not_seedable=ns_b, two_pass=two_pass, cand_vecs=cv)
+            fill=fill, not_seedable=ns_b, two_pass=two_pass, cand_vecs=cv,
+            gather_fn=gather_fn, n_base=n_base)
         outs.append(pruned)
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -556,12 +563,17 @@ def _merge_forward_reverse(
     metric: Metric,
     batch: int,
     fill: bool,
+    prune_rows=None,
 ) -> torch.Tensor:
     """Per node: own ∪ reverse; prune to ``cap`` when above it.
 
     Nodes at or under ``cap`` keep own-then-reverse order (reference
     push_back without prune); overfull nodes go through the batched
-    occlusion prune over their full dedup'd candidate list."""
+    occlusion prune over their full dedup'd candidate list.
+    ``prune_rows``: `_batched_prune_rows` past its ``base_dev`` argument
+    (the default, over ``base_dev``) or the sharded build's
+    ``sharded_prune_rows`` past its mesh and base shard."""
+    prune_rows = prune_rows or functools.partial(_batched_prune_rows, base_dev)
     n, A = own.shape
     R = rev.shape[1]
     bs = _block_rows(n, R * A)
@@ -578,8 +590,8 @@ def _merge_forward_reverse(
         rev_r = gather_rows_any(rev, ids)
         dup = (rev_r[:, :, None] == own_r[:, None, :]).any(dim=2)
         cand_b = torch.cat([own_r, torch.where(dup, n, rev_r)], dim=1)
-        merged[ids.long()] = _batched_prune_rows(
-            base_dev, ids, cand_b, cap, metric, batch, fill)
+        merged[ids.long()] = prune_rows(ids, cand_b, cap, metric, batch,
+                                        fill)
     return merged
 
 
@@ -783,14 +795,17 @@ def build_roargraph(
     return RoarGraphIndex(graph=g, metric=metric, dim=base.shape[1])
 
 
-def _edge_dists(base_dev, e_src, e_dst, metric,
-                chunk: int = 1 << 20) -> torch.Tensor:
-    """Distances for an edge list, chunked through the device."""
+def _edge_dists(base_dev, e_src, e_dst, metric, chunk: int = 1 << 20,
+                take=None) -> torch.Tensor:
+    """Distances for an edge list, chunked through the device. ``take``
+    (global ids → vectors) stands in for gathering from ``base_dev``, which
+    then only names the device."""
     dev = base_dev.device
+    take = take or functools.partial(gather_rows_any, base_dev)
     parts = []
     for s in range(0, e_src.size, chunk):
-        a = gather_rows_any(base_dev, _to_dev(e_src[s: s + chunk], dev))
-        b = gather_rows_any(base_dev, _to_dev(e_dst[s: s + chunk], dev))
+        a = take(_to_dev(e_src[s: s + chunk], dev))
+        b = take(_to_dev(e_dst[s: s + chunk], dev))
         if metric in (Metric.IP, Metric.COSINE):
             parts.append(-torch.sum(a * b, dim=-1))
         else:
@@ -801,15 +816,18 @@ def _edge_dists(base_dev, e_src, e_dst, metric,
 
 
 def _own_overwrite(supply: torch.Tensor, chunk_lists: torch.Tensor,
-                   r0: int) -> None:
+                   r0: int, lo: int = 0, n: int | None = None) -> None:
     """Own-row overwrite of one chunk, in place (reference :1213): rows
-    [r0, r0+c) ∩ [0, n) take the fresh pruned lists, sentinel-padded."""
-    n = supply.shape[0]
+    [r0, r0+c) ∩ [0, n) take the fresh pruned lists, sentinel-padded.
+    ``supply`` holds rows [lo, lo + len(supply)) of the n-row graph (all
+    of it by default; the sharded build's mp shard)."""
+    n = supply.shape[0] if n is None else n
     Mc = chunk_lists.shape[1]
-    hi = min(r0 + chunk_lists.shape[0], n)
-    if hi > r0:
-        supply[r0:hi, :Mc] = chunk_lists[: hi - r0]
-        supply[r0:hi, Mc:] = n
+    a = max(r0, lo)
+    b = min(r0 + chunk_lists.shape[0], n, lo + supply.shape[0])
+    if b > a:
+        supply[a - lo: b - lo, :Mc] = chunk_lists[a - r0: b - r0]
+        supply[a - lo: b - lo, Mc:] = n
 
 
 def _round_edges(chunk_lists: torch.Tensor, r0: int, n: int):
@@ -871,21 +889,29 @@ def _fold_slab(supply: torch.Tensor, chunk_lists: torch.Tensor, r0: int,
     here is [sn, W]. Same edges, same ranks, same merge, so the outputs
     are bit-identical to the single fold's. ``edges``: the chunk's
     `_round_edges`, when the caller folds several slabs of one chunk."""
-    n, W = supply.shape
-    ds, ss, rank = edges if edges is not None else _round_edges(
-        chunk_lists, r0, n)
-    hi = min(lo + sn, n)
-    keep = (ds >= lo) & (ds < hi) & (rank < W)
-    rev = torch.full((sn + 1, W), n, dtype=_I32, device=supply.device)
-    rev[torch.where(keep, ds - lo, sn).long(),
+    n = supply.shape[0]
+    edges = edges if edges is not None else _round_edges(chunk_lists, r0, n)
+    return supply, _fold_rows(supply[lo: lo + sn], edges, lo, n)
+
+
+def _fold_rows(own: torch.Tensor, edges, lo: int, n: int) -> torch.Tensor:
+    """Fold a chunk's reverse edges into rows [lo, lo + len(own)) of the
+    n-row supply graph, held in ``own``, in place: their arrival-order
+    reverse lists (``edges``: the chunk's `_round_edges`), merged into the
+    rows that fit. Returns fit [len(own)]. A slab of the slab fold, or the
+    sharded build's mp shard."""
+    rows, W = own.shape
+    ds, ss, rank = edges
+    keep = (ds >= lo) & (ds < lo + rows) & (rank < W)
+    rev = torch.full((rows + 1, W), n, dtype=_I32, device=own.device)
+    rev[torch.where(keep, ds - lo, rows).long(),
         torch.where(keep, rank, 0).long()] = torch.where(keep, ss, n)
-    rev = rev[: hi - lo]
-    own = supply[lo:hi]
+    rev = rev[:rows]
     deg_own = torch.sum(own < n, dim=1, dtype=_I32)
     deg_rev = torch.sum(rev < n, dim=1, dtype=_I32)
     fit = (deg_own + deg_rev) <= W
     _merge_rev_rows(own, rev, fit, n)
-    return supply, fit
+    return fit
 
 
 def _rev_rows_for_ids(chunk_lists: torch.Tensor, r0: int,
@@ -1249,7 +1275,7 @@ def _connectivity_pass(base_dev, projection, ep, cfg, metric, log,
 
 
 def _ensure_reachability(final: np.ndarray, ep: int, base_dev, metric,
-                         log) -> np.ndarray:
+                         log, knn=None) -> np.ndarray:
     """Phase E: make every node reachable from the entry point.
 
     The reference carries this as dead code (findroot/dfs/CollectPoints,
@@ -1257,13 +1283,25 @@ def _ensure_reachability(final: np.ndarray, ep: int, base_dev, metric,
     BFS from ep, then each unreachable node is appended to the lists of
     its nearest reachable nodes (first free slot, else the last), until
     the graph is fully reachable.
+
+    ``knn(ids)``: the 32 nearest base ids of base rows ``ids`` (numpy
+    [B] → [B, 32]), each block at most 8,192 rows; by default an exact
+    scan of ``base_dev`` (the sharded build passes the sharded scan).
     """
     from mysteryann_tpu_torch.ops.knn import exact_knn_device
 
     if not final.flags.writeable:
         final = final.copy()
     n, width = final.shape
-    dev = base_dev.device
+    kk = 32
+
+    def scan(blk):
+        q = gather_rows_any(base_dev, _to_dev(blk, base_dev.device))
+        _, c = exact_knn_device(q, base_dev, k=kk, metric=metric,
+                                tile=min(131072, n))
+        return c.cpu().numpy()
+
+    knn = knn or scan
     for it in range(8):
         # BFS from ep (vectorized frontier waves)
         reachable = np.zeros(n, bool)
@@ -1283,15 +1321,10 @@ def _ensure_reachability(final: np.ndarray, ep: int, base_dev, metric,
         log(f"phase E round {it}: {stranded.size} unreachable nodes")
         # nearest reachable neighbour for each stranded node, in query
         # blocks (exact_knn_device holds a [B, tile] distance block)
-        kk = 32
         qb = 8192
         cand = np.empty((stranded.size, kk), np.int32)
         for s in range(0, int(stranded.size), qb):
-            blk = stranded[s: s + qb]
-            q = gather_rows_any(base_dev, _to_dev(blk, dev))
-            _, c = exact_knn_device(q, base_dev, k=kk, metric=metric,
-                                    tile=min(131072, n))
-            cand[s: s + blk.size] = c.cpu().numpy()
+            cand[s: s + qb] = knn(stranded[s: s + qb])
         # attach to the A nearest reachable anchors (a single thin edge
         # leaves repaired nodes hard to find)
         A = 3
@@ -1330,20 +1363,23 @@ def _membership(pool: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _cap_degree(rows: torch.Tensor, base_dev, cap: int, metric, batch: int,
-                n: int) -> torch.Tensor:
+                n: int, prune_rows=None) -> torch.Tensor:
     """Bound every row to ``cap`` edges: rows over the cap go through the
     occlusion prune (fill pass keeps them full); rows within it are
     copied (they are left-compacted, so truncating the width is lossless).
-    Used by multi-pass phase D to hold the reference's 2*M degree bound."""
+    Pruning every row instead would not be the same: the keep-scan can
+    reorder or drop edges of rows under the cap too. Used by multi-pass
+    phase D to hold the reference's 2*M degree bound. ``prune_rows``: as
+    in `_merge_forward_reverse`."""
+    prune_rows = prune_rows or functools.partial(_batched_prune_rows, base_dev)
     deg = torch.sum(rows < n, dim=1, dtype=_I32)
     over = torch.nonzero(deg > cap)[:, 0].to(_I32)
     out = rows[:, :cap].contiguous()
     OB = 1 << 15
     for s in range(0, over.shape[0], OB):
         ids = over[s: s + OB]
-        out[ids.long()] = _batched_prune_rows(
-            base_dev, ids, gather_rows_any(rows, ids), cap, metric, batch,
-            fill=True)
+        out[ids.long()] = prune_rows(ids, gather_rows_any(rows, ids), cap,
+                                     metric, batch, fill=True)
     return out
 
 

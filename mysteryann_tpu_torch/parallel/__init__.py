@@ -15,3 +15,12 @@ from mysteryann_tpu_torch.parallel.sharded_search import (  # noqa: F401
     query_parallel_search,
 )
 from mysteryann_tpu_torch.parallel.sharded_ivf import ShardedIVF  # noqa: F401
+from mysteryann_tpu_torch.parallel.sharded_build import (  # noqa: F401
+    scatter_rows_sharded,
+    sharded_build_roargraph,
+    sharded_prune_rows,
+    take_rows_sharded,
+)
+from mysteryann_tpu_torch.parallel.sharded_fused import (  # noqa: F401
+    ShardedFusedSearcher,
+)

@@ -236,11 +236,13 @@ def replicate(mesh: Mesh, x) -> torch.Tensor:
     return _to_device(x, mesh.device)
 
 
-def psum(x: torch.Tensor, mesh: Mesh, axis="mp") -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axis`` (``x`` may be overwritten)."""
+def psum(x: torch.Tensor, mesh: Mesh, axis="mp",
+         op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis`` (``x`` may be overwritten);
+    ``op`` another reduction (``dist.ReduceOp.MIN``, ...)."""
     y = x.cpu() if mesh.stage else x
     for a in _axes(axis):
-        dist.all_reduce(y, group=mesh.group(a))
+        dist.all_reduce(y, op=op, group=mesh.group(a))
     return y.to(x.device) if mesh.stage else y
 
 

@@ -90,8 +90,7 @@ def distributed_beam_search(
     metric = Metric.parse(metric)
     if visited_mode not in ("bitmask", "merge", "pool"):
         raise ValueError(f"unknown visited_mode {visited_mode!r}")
-    shard_n, d = base.shape
-    M = neighbors.shape[1]
+    shard_n = base.shape[0]
     dp, mp = mesh.shape["dp"], mesh.shape["mp"]
     n_rows = shard_sizes(mesh, shard_n, "mp")
     q_rows = shard_sizes(mesh, queries.shape[0], "dp")
@@ -106,7 +105,24 @@ def distributed_beam_search(
         # the single-device engine's guard, raised before any collective
         raise ValueError(f"L ({L}) must be >= number of entry points "
                          f"E ({E})")
-    n = shard_n * mp
+    return _lockstep_sharded(mesh, base, neighbors, eps, queries, k=k, L=L,
+                             metric=metric, max_hops=max_hops,
+                             visited_mode=visited_mode,
+                             collect_expanded=collect_expanded, expand=expand)
+
+
+def _lockstep_sharded(mesh: Mesh, base: torch.Tensor,
+                      neighbors: torch.Tensor, eps: torch.Tensor,
+                      queries: torch.Tensor, *, k: int, L: int,
+                      metric: Metric, max_hops: int, visited_mode: str,
+                      collect_expanded: int, expand: int) -> SearchResult:
+    """`distributed_beam_search` past its checks. The collectives run over
+    ``mp`` only, so the dp shards may hold different numbers of queries
+    (the sharded build's last batch of a round); the mp peers of a rank
+    must hold the same ones."""
+    shard_n, d = base.shape
+    M = neighbors.shape[1]
+    n = shard_n * mesh.shape["mp"]
     off = mesh.coord("mp") * shard_n
 
     def owned(ids):
@@ -130,7 +146,7 @@ def distributed_beam_search(
                     mesh, "mp")
 
     ep_ids = eps.to(device=queries.device, dtype=torch.int32)[None, :].expand(
-        queries.shape[0], E)
+        queries.shape[0], eps.shape[0])
     return lockstep(ep_ids, dists_of(ep_ids), rows_of, dists_of, k=k, L=L,
                     n_base=n, n_total=n, M=M, max_hops=max_hops,
                     expand=expand, visited_mode=visited_mode,

@@ -34,7 +34,7 @@ Memory: N·R bytes, e.g. 6.5 GB for 1M nodes at width 48, d=128, int8.
 from __future__ import annotations
 
 import time
-from typing import TYPE_CHECKING, Tuple
+from typing import TYPE_CHECKING, Callable, Tuple
 
 import numpy as np
 import torch
@@ -197,6 +197,66 @@ def _fused_beam(table: torch.Tensor, base: torch.Tensor, eps: torch.Tensor,
     unexpanded candidate is beyond ``d_k + exit_f·(d_k − d_0)``.
     ``rerank`` sets the depth of the exact f32 rerank of the pool head.
     """
+    metric = Metric.parse(metric)
+    B = q.shape[0]
+    F = expand * M
+    q_sq = (torch.sum(q * q, dim=1, keepdim=True) if metric == Metric.L2
+            else None)
+
+    def step(cur):
+        # THE gather: one packed byte row per expansion (K1)
+        rows = gather_rows(table, torch.clamp(cur, max=n_base).reshape(-1))
+        return _score_packed_rows(q, rows, metric, q_sq, B=B, F=F, M=M, d=d,
+                                  bits=bits, expand=expand)
+
+    def exact(ids):
+        vecs = gather_rows_any(base, torch.clamp(ids, max=n_base - 1)
+                               .reshape(-1)).reshape(ids.shape + (d,))
+        return _exact_dists(q, vecs, metric, q_sq)
+
+    return fused_lockstep(
+        q, eps, step, exact, k=k, L=L, metric=metric, max_hops=max_hops,
+        n_base=n_base, M=M, collect_expanded=collect_expanded,
+        visited_mode=visited_mode, expand=expand, seed_ids=seed_ids,
+        seed_d=seed_d, exit_f=exit_f, bits=bits, rerank=rerank)
+
+
+def _exact_dists(q: torch.Tensor, vecs: torch.Tensor, metric: Metric,
+                 q_sq: torch.Tensor | None) -> torch.Tensor:
+    """Exact f32 distances of ``vecs`` [B, c, d] to their queries ``q``
+    [B, d]; ``q_sq`` is the queries' squared norms [B, 1] (L2 only)."""
+    ip = torch.bmm(vecs, q[:, :, None])[:, :, 0]
+    if metric in (Metric.IP, Metric.COSINE):
+        return -ip
+    return q_sq - 2.0 * ip + torch.sum(vecs * vecs, 2)
+
+
+def fused_lockstep(q: torch.Tensor, eps: torch.Tensor,
+                   step: Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                        torch.Tensor]],
+                   exact: Callable[[torch.Tensor], torch.Tensor], *,
+                   k: int, L: int, metric: Metric, max_hops: int,
+                   n_base: int, M: int, collect_expanded: int = 0,
+                   visited_mode: str = "merge", expand: int = 1,
+                   seed_ids: torch.Tensor | None = None,
+                   seed_d: torch.Tensor | None = None,
+                   exit_f: float | None = None, bits: int = 8,
+                   rerank: int = 0):
+    """The fused engine's loop, with the row fetch and the exact distances
+    supplied by the caller (`_fused_beam`'s arguments and results).
+
+    ``step(cur)``: the picks ``cur`` int32 [B, expand] (``n_base`` for no
+    pick) → (nd f32 [B, expand·M], nbrs int32 [B, expand·M]): the
+    quantized distances and the ids of the picks' inline neighbours, ids
+    >= ``n_base`` invalid. ``exact(ids)``: int32 [B, c] → f32 [B, c], the
+    exact distances of valid ids to their queries (any value for invalid
+    ids) — the unseeded entry points' and the rerank head's.
+
+    The single-card engine gathers a byte row of its table per pick;
+    ``parallel.ShardedFusedSearcher`` gathers the owner's row and sums the
+    scores over ``mp``. The loop reads only the pool to decide when to
+    stop, so callers whose pools are equal make the same calls.
+    """
     if visited_mode not in ("merge", "bitmask", "pool"):
         raise ValueError(f"unknown visited_mode {visited_mode!r}")
     use_bitmask = visited_mode == "bitmask"
@@ -211,22 +271,14 @@ def _fused_beam(table: torch.Tensor, base: torch.Tensor, eps: torch.Tensor,
     if seed_ids is not None:
         if seed_d is None:
             raise ValueError("seed_ids needs seed_d")
-        E = seed_ids.shape[1]
         ep_ids = seed_ids.to(_I32)
-        ep_d = seed_d.to(torch.float32)
     else:
-        E = eps.shape[0]
-        ep_ids = eps.to(_I32)[None, :].expand(B, E).contiguous()
-        ep_v = gather_rows_any(base, ep_ids.reshape(-1)).reshape(B, E, d)
-        ep_ip = torch.bmm(ep_v, q[:, :, None])[:, :, 0]
-        if metric in (Metric.IP, Metric.COSINE):
-            ep_d = -ep_ip
-        else:
-            ep_d = (torch.sum(q * q, 1, keepdim=True) - 2 * ep_ip
-                    + torch.sum(ep_v * ep_v, 2))
+        ep_ids = eps.to(_I32)[None, :].expand(B, eps.shape[0]).contiguous()
+    E = ep_ids.shape[1]
     pad = L - E
     if pad < 0:
         raise ValueError(f"L={L} must be >= number of entry points E={E}")
+    ep_d = seed_d.to(torch.float32) if seed_ids is not None else exact(ep_ids)
     cand_ids = torch.cat(
         [ep_ids, torch.full((B, pad), n_total, dtype=_I32, device=dev)], 1)
     cand_d = torch.cat([ep_d, torch.full((B, pad), _INF, device=dev)], 1)
@@ -234,9 +286,6 @@ def _fused_beam(table: torch.Tensor, base: torch.Tensor, eps: torch.Tensor,
         [torch.zeros((B, E), dtype=torch.bool, device=dev),
          torch.ones((B, pad), dtype=torch.bool, device=dev)], 1)
     cand_d, cand_ids, cand_exp = sort_multi((cand_d, cand_ids, cand_exp), 2)
-
-    q_sq = (torch.sum(q * q, dim=1, keepdim=True) if metric == Metric.L2
-            else None)
 
     # column H of the history takes the writes the JAX package drops
     H = max(collect_expanded, 1)
@@ -293,10 +342,7 @@ def _fused_beam(table: torch.Tensor, base: torch.Tensor, eps: torch.Tensor,
             pos = torch.where(sel_valid & (pos < H), pos, H).long()
             hist.scatter_(1, pos, cur)
 
-        # THE gather: one packed byte row per expansion (K1)
-        rows = gather_rows(table, torch.clamp(cur, max=n_base).reshape(-1))
-        nd, nbrs = _score_packed_rows(q, rows, metric, q_sq, B=B, F=F, M=M,
-                                      d=d, bits=bits, expand=expand)
+        nd, nbrs = step(cur)
         hops.add_(torch.sum(sel_valid, dim=1, dtype=_I32))
 
         if use_bitmask or use_pool:
@@ -362,14 +408,7 @@ def _fused_beam(table: torch.Tensor, base: torch.Tensor, eps: torch.Tensor,
     # misorders the pool more, so its rerank reaches deeper
     kk = min(L, rerank or max(2 * k, k + 8) * (2 if bits == 4 else 1))
     head = cand_ids[:, :kk]
-    vecs = gather_rows_any(base, torch.clamp(head, max=n_base - 1)
-                           .reshape(-1)).reshape(B, kk, d)
-    ip = torch.bmm(vecs, q[:, :, None])[:, :, 0]
-    if metric in (Metric.IP, Metric.COSINE):
-        ed = -ip
-    else:
-        ed = q_sq - 2.0 * ip + torch.sum(vecs * vecs, 2)
-    ed = torch.where(head < n_base, ed, _INF)
+    ed = torch.where(head < n_base, exact(head), _INF)
     ed, ei = sort_multi((ed, head), 2)
     dup = torch.zeros_like(ei, dtype=torch.bool)
     dup[:, 1:] = ei[:, 1:] == ei[:, :-1]

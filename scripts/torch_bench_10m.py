@@ -10,13 +10,16 @@ Queries are on the device before a clock starts, timed windows are closed
 by `torch.cuda.synchronize()`, and each row is the median of 3 trials after
 2 discarded.
 
-`--sharded-fused MP` (the 10M graph served from byte rows sharded over MP
-devices) needs `mysteryann_tpu_torch.parallel.sharded_fused`
-(ShardedFusedSearcher), which the port's `parallel/` package does not have
-yet: the flag is parsed and the script exits 2 with a message.
+`--sharded-fused MP` serves the cached graph instead (it needs
+scripts/torch_build_10m.py's index; without one the script exits 2) from
+int4 byte rows of width 32 row-sharded over MP ranks
+(`parallel.ShardedFusedSearcher`, expand 4, seeds min(40, L) from a 1-in-2
+sample) at L = 48, 64, 96, 128, and prints only those rows. The ranks are
+spawned here (`parallel.launch`): with a card each they take NCCL, when
+they share fewer cards gloo (a correctness run, not a scaling figure).
 
 Run on the card:  python scripts/torch_bench_10m.py [--skip-flat]
-                  [--skip-ivf] [--only-ivf] [--no_cache]
+                  [--skip-ivf] [--only-ivf] [--no_cache] [--sharded-fused MP]
 On the CPU (tiny): --device cpu --n_base 3000 --n_eval 128 --dim 32
 Emits one JSON line; artifacts cache under .bench_cache/.
 """
@@ -25,6 +28,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,6 +44,8 @@ K = 10
 N_TRAIN = 1_000_000     # the graph caches are keyed by the train-set size
 FLAT_ROWS = (("f32", 2), ("bf16", 2), ("int8", 4), ("scan", 2))
 GRAPH_LS = (100, 150, 250)
+SHARDED_LS = (48, 64, 96, 128)
+SHARDED_TIMEOUT_S = 7200
 
 
 def main(argv=None):
@@ -56,17 +62,13 @@ def main(argv=None):
     ap.add_argument("--skip-flat", action="store_true")
     ap.add_argument("--skip-ivf", action="store_true")
     ap.add_argument("--sharded-fused", type=int, metavar="MP", default=0,
-                    help="not available yet: needs parallel.sharded_fused")
+                    help="serve the cached graph sharded over MP ranks "
+                         "and print only those rows")
     ap.add_argument("--cache_dir", default=default_cache_dir(__file__))
     ap.add_argument("--no_cache", action="store_true",
                     help="compute everything, write nothing to disk")
     add_device_flag(ap)
     args = ap.parse_args(argv)
-    if args.sharded_fused:
-        log("--sharded-fused needs mysteryann_tpu_torch.parallel."
-            "sharded_fused (ShardedFusedSearcher over torch.distributed), "
-            "which is not ported yet; run without it")
-        sys.exit(2)
     dev = device_from(ap, args)
 
     from mysteryann_tpu_torch.flat import FlatIndex
@@ -83,6 +85,16 @@ def main(argv=None):
     n, dim, n_eval = args.n_base, args.dim, args.n_eval
     cache = None if args.no_cache else args.cache_dir
     key, gkey = build.keys(n, dim, args.n_train)
+    found = None
+    for passes in (2, 1):
+        for engine in ("fused", "classic"):
+            p = (os.path.join(cache, f"{gkey}_p{passes}_{engine}_proj.index")
+                 if cache else "")
+            if found is None and p and os.path.exists(p):
+                found = (p, passes)
+    if args.sharded_fused and found is None:
+        log("no cached 10M index — run scripts/torch_build_10m.py first")
+        sys.exit(2)
 
     log("== data ==")
     (base,) = cached(cache, f"{key}_base", lambda: [make_cross_modal(
@@ -113,6 +125,13 @@ def main(argv=None):
     gt_i = gt_i.astype(np.int64)
 
     rows, skipped = [], []
+    if args.sharded_fused:
+        rows = _sharded_fused_rows(base, eval_q, gt_i, found[0],
+                                   args.sharded_fused, dev, cache)
+        out = {"scale": n, "rows": rows, "sharded_fused": args.sharded_fused,
+               **card_info(dev)}
+        print(json.dumps(out))
+        return out
 
     def add_row(mode, r, **extra):
         rows.append({"mode": mode, "qps": round(r["qps"], 1),
@@ -162,13 +181,6 @@ def main(argv=None):
             del idx
 
     # ---- RoarGraph (built by scripts/torch_build_10m.py; cached index) ----
-    found = None
-    for passes in (2, 1):
-        for engine in ("fused", "classic"):
-            p = (os.path.join(cache, f"{gkey}_p{passes}_{engine}_proj.index")
-                 if cache else "")
-            if found is None and p and os.path.exists(p):
-                found = (p, passes)
     if found is not None and shared:
         index_path, passes = found
         build_secs = None
@@ -196,6 +208,50 @@ def main(argv=None):
     out = {"scale": n, "rows": rows, "skipped": skipped, **card_info(dev)}
     print(json.dumps(out))
     return out
+
+
+def _sharded_fused_rows(base, eval_q, gt_i, index_path, mp, dev, cache):
+    """The cached graph served by `ShardedFusedSearcher` on a 1 x MP mesh:
+    one row per L of SHARDED_LS, each the median of 3 trials after 2
+    discarded, recall on rank 0's results (with dp = 1 every rank serves
+    every query). The ranks read the base and the queries memory-mapped
+    from .npy files written for them."""
+    from mysteryann_tpu_torch.parallel import launch
+    from mysteryann_tpu_torch.utils.metrics import compute_recall
+
+    log(f"== sharded fused serve (mesh 1 x {mp}, bits 4, M 32) ==")
+    with tempfile.TemporaryDirectory(dir=cache) as work:
+        np.save(os.path.join(work, "base.npy"), base)
+        np.save(os.path.join(work, "eval_q.npy"), eval_q)
+        out = launch.run(
+            "torch_bench_10m:sharded_fused_rank", mp,
+            (work, index_path, mp, "cpu" if dev.type == "cpu" else None),
+            timeout=SHARDED_TIMEOUT_S)[0]
+    rows = []
+    for L, r in zip(SHARDED_LS, out):
+        rows.append({"mode": f"sharded_fused_mp{mp}_L{L}",
+                     "qps": round(r["qps"], 1),
+                     "qps_min": round(r["qps_min"], 1),
+                     "qps_max": round(r["qps_max"], 1),
+                     "recall": round(compute_recall(r["ids"], gt_i, K), 4)})
+        log(rows[-1])
+    return rows
+
+
+def sharded_fused_rank(work: str, index_path: str, mp: int, device):
+    """One rank of `_sharded_fused_rows` (spawned by `parallel.launch`)."""
+    from mysteryann_tpu_torch import parallel as par
+    from mysteryann_tpu_torch.graph import RoarGraphIndex
+
+    mesh = par.make_mesh_distributed(dp=1, mp=mp, device=device)
+    base = np.load(os.path.join(work, "base.npy"), mmap_mode="r")
+    eval_q = np.load(os.path.join(work, "eval_q.npy"))
+    sf = par.ShardedFusedSearcher(mesh, RoarGraphIndex.load(index_path),
+                                  base, max_degree=32, seed_sample=2, bits=4)
+    del base
+    return [med3(lambda warmup: sf.benchmark(
+        eval_q, k=K, L=L, expand=4, seeds=min(40, L), warmup=warmup))
+        for L in SHARDED_LS]
 
 
 if __name__ == "__main__":

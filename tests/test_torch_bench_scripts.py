@@ -166,11 +166,27 @@ def test_bench_10m_only_ivf_and_no_cache(capsys):
     assert out["rows"][0]["recall"] > 0.99      # every cluster probed
 
 
-def test_bench_10m_sharded_fused_waits_for_the_parallel_package(capsys):
+def test_bench_10m_sharded_fused_tiny(cache_10m, capsys):
+    """The cached graph served by 2 gloo ranks (a 1 x 2 mesh): one JSON line
+    with one row per L, and nothing else of the sweep."""
+    d, _ = cache_10m
+    out = _script("torch_bench_10m").main(
+        TINY_10M + ["--sharded-fused", "2", "--cache_dir", d] + CPU)
+    assert _json_line(capsys) == out
+    assert out["sharded_fused"] == 2 and out["device"] == "cpu"
+    assert [r["mode"] for r in out["rows"]] == [
+        f"sharded_fused_mp2_L{L}" for L in (48, 64, 96, 128)]
+    assert all(r["qps"] > 0 for r in out["rows"])
+    assert out["rows"][-1]["recall"] > 0.9
+
+
+def test_bench_10m_sharded_fused_without_an_index_exits_2(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
-        _script("torch_bench_10m").main(["--sharded-fused", "4"] + CPU)
+        _script("torch_bench_10m").main(
+            TINY_10M + ["--sharded-fused", "2", "--cache_dir",
+                        str(tmp_path)] + CPU)
     assert e.value.code == 2
-    assert "parallel.sharded_fused" in capsys.readouterr().err
+    assert "torch_build_10m.py first" in capsys.readouterr().err
 
 
 def test_bench_50m_tiny(tmp_path, capsys):

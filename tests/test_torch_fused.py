@@ -259,6 +259,69 @@ def test_fused_beam_max_hops_and_rerank(world):
     assert (t[3].numpy() == 9).all()
 
 
+def _split_fns(world, bits, metric, mp):
+    """``fused_lockstep``'s two functions as ``mp`` row shards of the table
+    and base would give them: each shard scores the picks it owns, the
+    others add -0.0 (or 0 to ``id + 1``), as ``parallel.ShardedFusedSearcher``
+    sums them over its ranks."""
+    base, queries, _, tables = world
+    table, tb, q = tables[bits][1], torch.from_numpy(base), \
+        torch.from_numpy(queries)
+    q_sq = torch.sum(q * q, 1, keepdim=True) if metric == Metric.L2 else None
+    sn = -(-N // mp)
+
+    def step(cur):
+        nd_t = torch.full((B, cur.shape[1] * 16), -0.0)
+        nb_t = torch.zeros((B, cur.shape[1] * 16), dtype=torch.int32)
+        for j in range(mp):
+            mine = (cur >= j * sn) & (cur < min(N, (j + 1) * sn))
+            rows = table[torch.where(mine, cur, N).reshape(-1).long()]
+            nd, nb = tf._score_packed_rows(
+                q, rows, metric, q_sq, B=B, F=cur.shape[1] * 16, M=16, d=D,
+                bits=bits, expand=cur.shape[1])
+            own = mine.repeat_interleave(16, dim=1)
+            nd_t = nd_t + torch.where(own, nd, -0.0)
+            nb_t = nb_t + torch.where(own, nb + 1, 0)
+        nb_t = nb_t - 1
+        return nd_t, torch.where(nb_t >= 0, nb_t, N + 1)
+
+    def exact(ids):
+        vecs = tb[torch.clamp(ids, max=N - 1).long()]
+        return tf._exact_dists(q, vecs, metric, q_sq)
+
+    return q, step, exact
+
+
+@pytest.mark.parametrize("mode,expand,seeded,bits,metric", [
+    ("merge", 1, False, 8, "ip"),
+    ("merge", 4, True, 4, "ip"),
+    ("merge", 2, False, 8, "l2"),
+    ("pool", 4, False, 8, "ip"),
+    ("bitmask", 2, True, 8, "l2"),
+])
+def test_fused_lockstep_with_caller_rows(world, mode, expand, seeded, bits,
+                                         metric):
+    """The factored loop fed by row fetches from 3 shards gives the
+    single-card engine's results, bit for bit (the single card's own are
+    pinned against the JAX package above)."""
+    _, t = _run_beam(world, bits, seeded, visited_mode=mode, expand=expand,
+                     metric=metric, collect_expanded=40)
+    m = Metric.parse(metric)
+    q, step, exact = _split_fns(world, bits, m, mp=3)
+    seeds = {}
+    if seeded:
+        rng = np.random.default_rng(8)
+        sid = np.stack([rng.choice(N, 6, replace=False) for _ in range(B)])
+        sid = torch.from_numpy(sid.astype(np.int32))
+        seeds = dict(seed_ids=sid, seed_d=exact(sid))
+    got = tf.fused_lockstep(
+        q, torch.tensor([7], dtype=torch.int32), step, exact, k=8, L=24,
+        metric=m, max_hops=4 * 24 + 32, n_base=N, M=16, bits=bits,
+        visited_mode=mode, expand=expand, collect_expanded=40, **seeds)
+    for name, g, w in zip(("ids", "dists", "cmps", "hops", "hist"), got, t):
+        assert torch.equal(g, w), name
+
+
 def test_fused_beam_validation(world):
     with pytest.raises(ValueError, match="visited_mode"):
         _run_beam(world, 8, False, visited_mode="nope")

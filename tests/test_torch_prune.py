@@ -74,3 +74,57 @@ def test_dists_to_src_without_vecs(metric):
                           torch.from_numpy(cand), torch.from_numpy(base),
                           metric)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("use_vecs", [True, False])
+def test_prune_gather_hook(metric, use_vecs):
+    """base=None with gather_fn + n_base (the sharded build's owner-masked
+    fetch): the same prune as with the base, and the same as the JAX
+    package's own hook."""
+    base, src, cand, ns = _inputs(13)
+    tb = torch.from_numpy(base)
+    calls = []
+
+    def fetch(ids):
+        calls.append(ids.numel())
+        return tb[ids.long()]
+
+    tsv = tb[torch.from_numpy(src).long()]
+    tcand, tns = torch.from_numpy(cand), torch.from_numpy(ns)
+    want_d, want_v = tp.dists_to_src(tsv, tcand, tb, metric,
+                                     return_vecs=True)
+    got_d, got_v = tp.dists_to_src(tsv, tcand, None, metric,
+                                   return_vecs=True, gather_fn=fetch,
+                                   n_base=N)
+    assert torch.equal(got_d, want_d) and torch.equal(got_v, want_v)
+    kw = dict(cap=10, metric=metric, fill=True, not_seedable=tns,
+              cand_vecs=want_v if use_vecs else None)
+    want = tp.batched_occlusion_prune(tsv, torch.from_numpy(src), tcand,
+                                      want_d, tb, **kw)
+    got = tp.batched_occlusion_prune(tsv, torch.from_numpy(src), tcand,
+                                     want_d, None, gather_fn=fetch,
+                                     n_base=N, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert len(calls) == (1 if use_vecs else 2)
+
+    jb = jnp.asarray(base)
+    jsv = jb[jnp.asarray(src)]
+    jd = jp.dists_to_src(jsv, jnp.asarray(cand), None, metric,
+                         gather_fn=lambda ids: jb[ids], n_base=N)
+    j_ids, _ = jp.batched_occlusion_prune(
+        jsv, jnp.asarray(src), jnp.asarray(cand), jd, None, cap=10,
+        metric=metric, fill=True, not_seedable=jnp.asarray(ns),
+        gather_fn=lambda ids: jb[ids], n_base=N)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(j_ids))
+
+
+def test_prune_without_base_needs_n_base():
+    base, src, cand, _ = _inputs(14)
+    tb = torch.from_numpy(base)
+    tsv = tb[torch.from_numpy(src).long()]
+    d = tp.dists_to_src(tsv, torch.from_numpy(cand), tb, "ip")
+    with pytest.raises(ValueError, match="n_base"):
+        tp.batched_occlusion_prune(tsv, torch.from_numpy(src),
+                                   torch.from_numpy(cand), d, None, cap=10,
+                                   gather_fn=lambda ids: tb[ids.long()])

@@ -12,14 +12,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mysteryann_tpu_torch.graph.adjacency import PaddedGraph
+from mysteryann_tpu_torch.graph.roargraph import RoarGraphIndex
 from mysteryann_tpu_torch.ivf import IVFIndex
-from mysteryann_tpu_torch.parallel import (ShardedIVF, all_gather,
+from mysteryann_tpu_torch.ops.distances import Metric, prepare_vectors
+from mysteryann_tpu_torch.parallel import (ShardedFusedSearcher, ShardedIVF,
+                                           all_gather,
                                            distributed_beam_search,
                                            gather_dp, init_distributed,
                                            make_mesh, make_mesh_distributed,
                                            psum, query_parallel_search,
-                                           replicate, shard_base,
-                                           sharded_exact_knn)
+                                           replicate, scatter_rows_sharded,
+                                           shard_base,
+                                           sharded_build_roargraph,
+                                           sharded_exact_knn,
+                                           sharded_prune_rows,
+                                           take_rows_sharded)
+from mysteryann_tpu_torch.utils.params import BuildConfig
 
 _RESULT_FIELDS = ("ids", "dists", "cmps", "hops", "hist_ids", "hist_d")
 
@@ -61,7 +70,75 @@ def _case(mesh, case: dict, world: dict) -> dict:
         return {"ids": gather_dp(mesh, ids).numpy(),
                 "dists": gather_dp(mesh, d).numpy(),
                 "n_clusters": sidx.n_clusters, "nc_real": sidx.nc_real}
+    if kind == "sharded_fused":
+        sf = _fused_searcher(mesh, world, case)
+        out = sf.search(shard_base(mesh, world["queries"], "dp"),
+                        device_out=True, **opts)
+        return {f: gather_dp(mesh, o).numpy()
+                for f, o in zip(_RESULT_FIELDS, out)}
+    if kind == "fused_errors":
+        return _fused_errors(mesh, world, case)
+    if kind == "prune_rows":
+        base = prepare_vectors(world["base"], case["metric"], "cpu")
+        return {"pruned": sharded_prune_rows(
+            mesh, shard_base(mesh, base, "mp"), world["tgt"], world["cand"],
+            metric=case["metric"], n=base.shape[0], **opts).numpy()}
+    if kind == "take_scatter":
+        arr = shard_base(mesh, world["arr"], "mp")
+        taken = take_rows_sharded(mesh, arr, world["ids"]).numpy()
+        scatter_rows_sharded(mesh, arr, world["ids"], world["rows"])
+        return {"taken": taken,
+                "scattered": all_gather(arr, mesh, "mp").numpy()}
+    if kind == "sharded_build":
+        idx = sharded_build_roargraph(mesh, world["base"], world["train"],
+                                      world["knn"], BuildConfig(**opts))
+        return {"neighbors": idx.graph.neighbors, "ep": idx.graph.ep}
+    if kind == "build_errors":
+        return _build_errors(mesh, world, opts)
     raise ValueError(f"unknown case kind {kind!r}")
+
+
+def _fused_searcher(mesh, world, case) -> ShardedFusedSearcher:
+    index = RoarGraphIndex(graph=PaddedGraph(world["graph"], world["ep"]),
+                           metric=Metric.parse(case["metric"]),
+                           dim=world["base"].shape[1])
+    return ShardedFusedSearcher(mesh, index, world["base"], **case["init"])
+
+
+def _fused_errors(mesh, world, case) -> dict:
+    """ShardedFusedSearcher.search's argument errors, raised by every rank
+    before any collective."""
+    bare = _fused_searcher(mesh, world, case)
+    sampled = _fused_searcher(mesh, world, dict(case, init=dict(
+        case["init"], seed_sample=4)))
+    q = shard_base(mesh, world["queries"], "dp")
+    got = {}
+    for name, sf, kw in (
+            ("seeds_without_sample", bare, dict(k=10, L=24, seeds=8)),
+            ("seeds_over_L", sampled, dict(k=10, L=24, seeds=30)),
+            ("k_over_L", bare, dict(k=30, L=24))):
+        try:
+            sf.search(q, **kw)
+            got[name] = None
+        except ValueError as e:
+            got[name] = str(e)
+    return got
+
+
+def _build_errors(mesh, world, opts) -> dict:
+    """sharded_build_roargraph's refusals: the fused engine, and an N that
+    mp does not divide."""
+    got = {}
+    for name, n, engine in (("fused_engine", None, "fused"),
+                            ("n_not_divisible", -1, "classic")):
+        try:
+            sharded_build_roargraph(
+                mesh, world["base"][:n], world["train"], world["knn"],
+                BuildConfig(**dict(opts, connectivity_engine=engine)))
+            got[name] = None
+        except ValueError as e:
+            got[name] = str(e)
+    return got
 
 
 def run_cases(worlds: dict, cases: list) -> dict:
@@ -82,7 +159,8 @@ def run_cases(worlds: dict, cases: list) -> dict:
         out["mesh_validation"] = None
     except ValueError as e:
         out["mesh_validation"] = str(e)
-    out["errors"] = _errors(meshes[(2, 4)])
+    if (2, 4) in meshes:
+        out["errors"] = _errors(meshes[(2, 4)])
     out["mesh_subset"] = _subset()
     return out
 
