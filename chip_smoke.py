@@ -5,7 +5,8 @@ flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
 index, the IVF index, parallel/ (sharded kNN, distributed and
 query-parallel beam search, sharded IVF, in 4 ranks sharing the card) and
-seven CLIs on the same world; then the worlds
+seven CLIs on the same world, with bench_torch.py's rows on the fused
+graph; then the worlds
 larger than 1M: the build's slab paths at 4M rows, a 4M x 128 build and
 seeded fused serving, and the index-keyed device corpus at 10M rows.
 
@@ -41,6 +42,13 @@ Phases, one line each before the last:
      the bench's ten (expand, seeds, L) rows, then the classic Searcher on
      the same graph at L=100 (the bench's parity row); one row must reach
      recall@10 >= 0.95;
+  8b. bench_twin: bench_torch.py's own row functions (those its main
+     calls) on the same base, eval queries and ground truth and on the
+     phase-7 graph, one discarded trial and one timed (no build): flat f32
+     in two windows, pooled; int8 flat; the ten seeded fused rows, each
+     recall@10 equal to the fused_serve row of the same (expand, seeds,
+     L); the classic parity row; the twin's headline JSON; its K1
+     launches;
   9. native: the fused index saved through the native host library and
      through the numpy plain version — byte-identical files, equal loads,
      both times; fails unless the library loaded;
@@ -156,6 +164,8 @@ SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
                   (4, 40, 64), (4, 40, 80), (4, 40, 112),
                   (3, 48, 144), (3, 48, 176), (2, 48, 224))
 TARGET_RECALL = 0.95
+# bench_torch.py's rows in the smoke: one discarded trial, one timed
+BENCH_TWIN_REPS = dict(repeats=1, ramp=1)
 # scripts/bench_bipartite.py's 1M recipe and sweep
 BIPARTITE_CFG = dict(M_sq=64, M_pjbp=32, metric=METRIC)
 # the script sweeps L = 50, 100, 200, 400; here two of them, for time
@@ -864,7 +874,64 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
           avg_cmps=r["avg_cmps"], avg_hops=r["avg_hops"])
     check(gather.error_flag_value() == 0,
           "the gather kernel met an out-of-range index (fused serving)")
-    return {"index": index, "k1_launches": build_launches + serve_launches}
+    return {"index": index, "k1_launches": build_launches + serve_launches,
+            "rows": rows, "build_s": t_build}
+
+
+def bench_twin_path(gather, world: dict, fused: dict) -> int:
+    """Phase 8b: bench_torch.py's row functions, the ones its main calls,
+    on this world and the phase-7 graph (BENCH_TWIN_REPS trials a row, no
+    build). Returns the phase's K1 launches."""
+    import bench_torch as bt
+
+    base_dev, eval_q = world["base_dev"], world["eval_q"]
+    gt_i, gt_d = world["gt_i"], world["gt_d"]
+    index = fused["index"]
+    gather.reset_launches()
+    t0 = time.perf_counter()
+    w1 = bt.flat_row(base_dev, eval_q, gt_i, gt_d, "f32", **BENCH_TWIN_REPS)
+    flat8 = bt.flat_row(base_dev, eval_q, gt_i, gt_d, "int8",
+                        **BENCH_TWIN_REPS)
+    graph_rows = bt.graph_sweep(index, base_dev, eval_q, gt_i, gt_d,
+                                **BENCH_TWIN_REPS)
+    w2 = bt.flat_row(base_dev, eval_q, gt_i, gt_d, "f32", **BENCH_TWIN_REPS)
+    flat = bt.pool_flat_windows(w1, w2)
+    classic = bt.classic_row(index, base_dev, eval_q, gt_i, gt_d,
+                             **BENCH_TWIN_REPS)
+    seconds = time.perf_counter() - t0
+    launches = gather.launches
+    flag = gather.error_flag_value()
+    head, _ = bt.summarize(flat, flat8, graph_rows, classic,
+                           round(fused["build_s"], 1), bt.read_baseline_qps(),
+                           bt.card_info(base_dev.device), seconds)
+    for name, row in (("flat_f32", flat), ("flat_int8", flat8)):
+        phase("bench_twin_flat", mode=name, qps=row["qps"],
+              qps_trials=row["qps_trials"], recall=row["recall"],
+              rderr=row["rderr"])
+    serve = {(r["expand"], r["seeds"], r["L_pq"]): r["recall@10"]
+             for r in fused["rows"]}
+    for r in graph_rows:
+        phase("bench_twin_fused", expand=r["expand"], seeds=r["seeds"],
+              L_pq=r["L_pq"], qps=r["qps"], recall=r["recall"],
+              fused_serve_recall=serve[r["expand"], r["seeds"], r["L_pq"]])
+    phase("bench_twin_classic", L_pq=classic["L_pq"], qps=classic["qps"],
+          recall=classic["recall"])
+    phase("bench_twin_headline", **head)
+    phase("bench_twin", seconds=seconds, k1_launches=launches,
+          error_flag=flag, n_eval=eval_q.shape[0], **BENCH_TWIN_REPS)
+    for r in graph_rows:
+        check(r["recall"] == serve[r["expand"], r["seeds"], r["L_pq"]],
+              f"bench twin: fused row {r['expand'], r['seeds'], r['L_pq']} "
+              f"recall {r['recall']} != fused_serve's")
+    check(flat["recall"] >= FLAT_FLOORS["f32"],
+          f"bench twin: flat f32 recall@10 {flat['recall']:.4f}")
+    check(flat8["recall"] >= FLAT_FLOORS["int8"],
+          f"bench twin: flat int8 recall@10 {flat8['recall']:.4f}")
+    check(head["detail"]["mode"] in ("flat", "flat_int8", "roargraph")
+          and head["value"] > 0, f"bench twin: headline {head}")
+    check(launches > 0, "bench twin: K1 launched 0 times")
+    check(flag == 0, "the gather kernel met an out-of-range index (twin)")
+    return launches
 
 
 def native_path(fused_index, tmp_root: str = HERE) -> dict:
@@ -2066,6 +2133,7 @@ def main() -> None:
     fused = fused_path(port, gather, run)
     run["fused_neighbors"] = fused["index"].graph.neighbors
     run["fused_ep"] = fused["index"].graph.ep
+    k1_twin = bench_twin_path(gather, run, fused)
     native_path(fused["index"])
     k1_bip = bipartite_path(port, gather, run)
     with tempfile.TemporaryDirectory(dir=HERE) as work:
@@ -2084,7 +2152,8 @@ def main() -> None:
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": (run_launches + flat["k1_launches"]
-                      + fused_launches + k1_bip + ivf["k1_launches"]
+                      + fused_launches + k1_twin + k1_bip
+                      + ivf["k1_launches"]
                       + k1_par + k1_cli + k1_large + k1_world),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],

@@ -71,6 +71,20 @@ def med3(bench_fn: Callable[..., dict]) -> dict:
     return r
 
 
+def med3_row(bench_fn: Callable[..., dict], gt_i, gt_d, k: int = 10,
+             metric: str = "ip", **fields) -> dict:
+    """One sweep row by `med3`: ``fields`` first, then QPS (median, min,
+    max), recall@k and rderr against the ground truth, and hops."""
+    from mysteryann_tpu_torch.utils.metrics import compute_recall, compute_rderr
+    r = med3(bench_fn)
+    return {**fields, "qps": round(r["qps"], 1),
+            "qps_min": round(r["qps_min"], 1),
+            "qps_max": round(r["qps_max"], 1),
+            "recall": round(compute_recall(r["ids"], gt_i, k), 4),
+            "rderr": round(compute_rderr(r["dists"], gt_d, k, metric), 6),
+            "avg_hops": round(r["avg_hops"], 1)}
+
+
 def cached(cache_dir: Optional[str], name: str, fn):
     """`npz_cached` under ``cache_dir``; with no directory, just ``fn()``
     (a run on a machine that is thrown away gains nothing from writing

@@ -11,8 +11,13 @@ so rows compare; `--engine auto` lets the build plan its phase-D engine
 from the card's memory (`graph/roargraph._build_memory_plan`), and
 `--max_degree 48` serves the wider rows a larger card has room for.
 
+`--flat` runs the flat section instead (port of scripts/probe_flat_4m.py):
+`FlatIndex` over the cached world in f32 (one tile of n rows) and bf16
+(resident bf16 rows, exact f32 rerank of a 2k head), with bench_torch.py's
+row protocol (2 trials discarded, the median of 5); no kNN, build or graph.
+
 Run on the card:  python scripts/torch_bench_4m_fused.py [--engine auto]
-                  [--max_degree 48] [--passes 2] [--no_cache]
+                  [--max_degree 48] [--passes 2] [--no_cache] [--flat]
 On the CPU (tiny): --device cpu --n_base 2000 --n_train 600 --n_eval 128
 Emits one JSON line; artifacts cache under .bench_cache/.
 """
@@ -29,9 +34,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
+import bench_torch as bt
 from mysteryann_tpu_torch.cli.common import add_device_flag, device_from
-from _torch_benchrun import (cached, card_info, default_cache_dir, log, med3,
-                             peak_gb, sync)
+from _torch_benchrun import (cached, card_info, default_cache_dir, log,
+                             med3_row, peak_gb, sync)
 
 K = 10
 M_SQ, M_PJBP, L_PJPQ = 64, 32, 128
@@ -61,20 +67,12 @@ def build_config(passes: int = 2, engine: str = "classic",
 def serve_rows(fused, eval_q, gt_i, gt_d, Ls, seeds: int, query_batch: int):
     """The seeded sweep: per L the benchmark scripts' row protocol (`med3`: two
     trials thrown away, then the median QPS of three)."""
-    from mysteryann_tpu_torch.utils.metrics import compute_recall, compute_rderr
     rows = []
     for L in Ls:
-        r = med3(lambda warmup: fused.benchmark(
+        rows.append(med3_row(lambda warmup: fused.benchmark(
             eval_q, k=K, L=L, query_batch=query_batch, expand=4,
-            seeds=min(seeds, L), warmup=warmup))
-        row = {"L_pq": L, "qps": round(r["qps"], 1),
-               "qps_min": round(r["qps_min"], 1),
-               "qps_max": round(r["qps_max"], 1),
-               "recall": round(compute_recall(r["ids"], gt_i, K), 4),
-               "rderr": round(compute_rderr(r["dists"], gt_d, K, "ip"), 5),
-               "avg_hops": round(r["avg_hops"], 1)}
-        log(json.dumps(row))
-        rows.append(row)
+            seeds=min(seeds, L), warmup=warmup), gt_i, gt_d, K, "ip", L_pq=L))
+        log(json.dumps(rows[-1]))
     return rows
 
 
@@ -93,6 +91,9 @@ def main(argv=None):
     ap.add_argument("--Ls", default="48,56,64,80,112")
     ap.add_argument("--query_batch", type=int, default=8192)
     ap.add_argument("--skip_serve", action="store_true")
+    ap.add_argument("--flat", action="store_true",
+                    help="the flat f32 / bf16 rows only (no kNN, build or "
+                         "graph rows)")
     ap.add_argument("--cache_dir", default=default_cache_dir(__file__))
     ap.add_argument("--no_cache", action="store_true",
                     help="compute everything, write nothing to disk")
@@ -127,6 +128,14 @@ def main(argv=None):
         exact_knn(eval_q, base_dev, k=K, metric="ip", query_batch=4096,
                   base_tile=131072, precision="highest"))[::-1])
     gt_i = gt_i.astype(np.int64)
+
+    if args.flat:
+        rows = [{"mode": f"flat_{p}",
+                 **bt.flat_row(base_dev, eval_q, gt_i, gt_d, p)}
+                for p in ("f32", "bf16")]
+        out = {"probe": "flat_4m", "scale": n, "rows": rows, **card_info(dev)}
+        print(json.dumps(out))
+        return out
 
     log("== train kNN ==")
     t0 = time.time()

@@ -20,9 +20,13 @@ SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "scripts")
 SCRIPT_NAMES = ["torch_bench_4m_fused", "torch_build_10m", "torch_sweep_10m",
            "torch_bench_10m", "torch_bench_50m", "torch_bench_bipartite",
-           "torch_large_paths_check"]
+           "torch_large_paths_check", "torch_regen_1m_cache",
+           "torch_probe_build_1m", "torch_probe_frontier_99",
+           "torch_sweep_1m_p3"]
 TINY_10M = ["--n_base", "2000", "--n_train", "600", "--n_eval", "128",
             "--dim", "32"]
+# bench_torch.py's world (128-d) at a tiny size
+TINY_1M = ["--n_base", "2000", "--n_train", "600", "--n_eval", "128"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -68,7 +72,8 @@ def test_script_imports_only_the_port(name):
     for line in src.splitlines():
         words = line.split()
         if words and words[0] in ("import", "from"):
-            assert words[1].split(".")[0] not in ("jax", "mysteryann_tpu"), line
+            assert words[1].split(".")[0] not in (
+                "jax", "mysteryann_tpu", "bench"), line
 
 
 @pytest.mark.parametrize("engine", ["classic", "auto"])
@@ -241,3 +246,106 @@ def test_large_paths_check_tiny(engine, capsys):
     assert out["bit_identical"] and out["engine"] == engine
     assert out["planned"]["fold"] == "single" and not out["planned"]["large"]
     assert out["forced"]["fold"] == "slab" and out["forced"]["slab_rows"] > 0
+
+
+def test_bench_4m_fused_flat_tiny(tmp_path, capsys):
+    out = _script("torch_bench_4m_fused").main(
+        ["--n_base", "2000", "--n_train", "600", "--n_eval", "128",
+         "--dim", "32", "--flat", "--cache_dir", str(tmp_path)] + CPU)
+    assert _json_line(capsys) == out
+    assert out["probe"] == "flat_4m" and out["scale"] == 2000
+    assert [r["mode"] for r in out["rows"]] == ["flat_f32", "flat_bf16"]
+    rec = {r["mode"]: r["recall"] for r in out["rows"]}
+    assert rec["flat_f32"] == 1.0 and rec["flat_bf16"] > 0.99
+    assert all(len(r["qps_trials"]) == 5 and len(r["qps_ramp"]) == 2
+               for r in out["rows"])
+    assert not any("_knn" in f or f.endswith(".index")
+                   for f in os.listdir(tmp_path))     # no kNN, no build
+
+
+@pytest.fixture(scope="module")
+def cache_1m(tmp_path_factory):
+    """bench_torch.py's tiny cache as torch_regen_1m_cache.py fills it."""
+    d = str(tmp_path_factory.mktemp("bench_torch_cache"))
+    return d, _script("torch_regen_1m_cache").main(
+        TINY_1M + ["--cache_dir", d] + CPU)
+
+
+def test_regen_1m_cache_fills_what_bench_torch_reads(cache_1m):
+    d, out = cache_1m
+    bt = _script("torch_regen_1m_cache").bt
+    key = bt.world_key(2000, 600)
+    assert out["key"] == key and set(out["secs"]) == {"data", "gt", "knn"}
+    assert out["files"] == sorted([
+        f"{key}_data.npz", f"{key}_evalw128.npz", f"torch_{key}_gtw128.npz",
+        f"torch_{key}_knn.npz"])
+
+    def recompute(*a, **kw):
+        raise AssertionError("recomputed a cached array")
+
+    with pytest.MonkeyPatch.context() as mp:
+        import mysteryann_tpu_torch.io as tio
+        import mysteryann_tpu_torch.ops as tops
+        mp.setattr(tio, "make_cross_modal", recompute)
+        mp.setattr(tops, "exact_knn", recompute)
+        base, train_q, eval_q = bt.world(d, 2000, 600, 128)
+        gt_i, _ = bt.ground_truth(d, key, eval_q, torch.from_numpy(base))
+        knn = bt.build_knn(d, key, train_q, torch.from_numpy(base))
+    assert base.shape == (2000, 128) and eval_q.shape == (128, 128)
+    assert gt_i.shape == (128, 10) and gt_i.dtype == np.int64
+    assert knn.shape == (600, bt.M_SQ)
+
+
+@pytest.fixture(scope="module")
+def index_1m(cache_1m):
+    """torch_probe_build_1m.py with bench_torch.py's recipe (p2e4b4)."""
+    d, _ = cache_1m
+    return d, _script("torch_probe_build_1m").main(
+        TINY_1M + ["--Ls", "40,48", "--cache_dir", d] + CPU)
+
+
+def test_probe_build_1m_tiny(index_1m, capsys):
+    d, out = index_1m
+    assert out["tag"] == "p2e4b4" and out["build_secs"] > 0
+    assert out["index"] == "torch_t2i1m_v3_2000_600_128_64_32_128_p2e4b4" \
+        "_proj.index"
+    assert [r["L_pq"] for r in out["rows"]] == [40, 48]
+    assert all(r["recall"] > 0.9 for r in out["rows"])
+    again = _script("torch_probe_build_1m").main(
+        TINY_1M + ["--skip_serve", "--cache_dir", d] + CPU)
+    assert _json_line(capsys) == again
+    assert again["build_secs"] == out["build_secs"] and again["rows"] == []
+
+
+def test_probe_frontier_99_tiny(index_1m, capsys):
+    d, _ = index_1m
+    out = _script("torch_probe_frontier_99").main(
+        TINY_1M + ["--cache_dir", d] + CPU)
+    assert _json_line(capsys) == out
+    rows = out["rows"]
+    assert rows and rows[0]["config"] == "e4_hi" and rows[0]["L_pq"] == 112
+    # the walk stops at the first row past the frontier
+    assert rows[-1]["recall"] >= 0.992
+    assert all(r["recall"] < 0.992 for r in rows[:-1])
+
+
+def test_probe_frontier_99_without_an_index_exits_2(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        _script("torch_probe_frontier_99").main(
+            TINY_1M + ["--cache_dir", str(tmp_path)] + CPU)
+    assert e.value.code == 2
+    assert "bench_torch.py" in capsys.readouterr().err
+
+
+def test_sweep_1m_p3_tiny(cache_1m, capsys):
+    d, _ = cache_1m
+    out = _script("torch_sweep_1m_p3").main(
+        TINY_1M + ["--passes", "1", "--L", "40", "60", "--cache_dir", d]
+        + CPU)
+    assert _json_line(capsys) == out
+    assert out["passes"] == 1 and out["build_secs"] > 0
+    assert out["degree"]["zero"] == 0
+    assert [r["L"] for r in out["rows"]] == [40, 60]
+    assert out["rows"][1]["recall"] >= out["rows"][0]["recall"] > 0.8
+    assert out["best_at_95"] in out["rows"] + [None]
+    assert any(f.endswith("_p1_proj.index") for f in os.listdir(d))
