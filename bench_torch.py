@@ -15,7 +15,10 @@ away, the first with a warm-up, then the median QPS of ``repeats``. The flat
 f32 row is measured in two windows, before the graph sweep and after it, and
 pooled. The graph index is built in a child process (``--build-only``), so
 the timed rows run in a process whose device never held the build's working
-set; the build checkpoints each phase, so a cut run resumes.
+set; the build checkpoints each phase, so a cut run resumes. bench.py's
+contention sentinel (`contention_sentinel`: a fixed bf16 8,192 x 1M product
+and min) is timed after the ground truth and again after the classic row,
+and both go into the detail as ``contention_sentinel_ms``.
 
 Arrays and the index are cached under ``.bench_cache/``. The world arrays
 share bench.py's keys (both packages make them with the same numpy code and
@@ -70,6 +73,8 @@ SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
                   (4, 40, 64), (4, 40, 80), (4, 40, 112),
                   (3, 48, 144), (3, 48, 176), (2, 48, 224))
 CLASSIC_L = 100
+# bench.py's contention sentinel: q [8192, 128] against 1M base rows
+SENTINEL_QUERIES, SENTINEL_ROWS, SENTINEL_TILE = 8192, 1_000_000, 131_072
 DETAIL_FILE = "bench_torch_detail.json"
 CACHE = os.path.join(HERE, ".bench_cache")
 BASELINE_LABEL = "reference C++ binary on the CPU, 16 threads (BASELINE.md)"
@@ -185,6 +190,42 @@ def _finish_row(r: dict, gt_i, gt_d, k: int) -> dict:
     r["recall"] = compute_recall(r["ids"], gt_i, k)
     r["rderr"] = compute_rderr(np.asarray(r["dists"]), gt_d, k, METRIC)
     return {kk: vv for kk, vv in r.items() if kk not in ("ids", "dists")}
+
+
+def sentinel_min(q: torch.Tensor, base: torch.Tensor,
+                 tile: int = SENTINEL_TILE) -> torch.Tensor:
+    """The sentinel's function: the min over each query's row of the bf16
+    product q·baseᵀ (both operands cast to bf16 inside the call, as
+    bench.py's jitted function does), the columns taken ``tile`` at a time
+    with a running min, so the [B, N] product is never held whole."""
+    qb = q.to(torch.bfloat16)
+    out = None
+    for s in range(0, base.shape[0], tile):
+        m = (qb @ base[s:s + tile].to(torch.bfloat16).T).amin(dim=1)
+        out = m if out is None else torch.minimum(out, m)
+    return out
+
+
+def contention_sentinel(base_dev: torch.Tensor) -> list:
+    """bench.py's contention sentinel on the card: the sorted ms of five
+    calls of `sentinel_min` for q = 0.01 [8192, 128] f32 against the first
+    1M rows of the base, after one warm call, each closed by
+    ``torch.cuda.synchronize``. Recorded beside a run's rows, a value above
+    the card's quiet one tells a depressed row (another tenant, a
+    lingering context) from a regression of the code."""
+    dev = base_dev.device
+    q = torch.zeros(SENTINEL_QUERIES, base_dev.shape[1], dtype=torch.float32,
+                    device=dev) + 0.01
+    b = base_dev[:SENTINEL_ROWS]
+    sentinel_min(q, b)
+    sync(dev)
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sentinel_min(q, b)
+        sync(dev)
+        ts.append(round(1000 * (time.perf_counter() - t0), 3))
+    return sorted(ts)
 
 
 def _bench_median(bench_fn, gt_i, gt_d, k, repeats=REPEATS, ramp=RAMP):
@@ -322,8 +363,10 @@ def best_at_target(rows):
 
 
 def summarize(flat, flat8, graph_rows, classic, build_secs, base_qps, card,
-              wall_secs):
-    """(headline, detail): the final compact line and the full rows."""
+              wall_secs, sentinel_ms: dict | None = None):
+    """(headline, detail): the final compact line and the full rows;
+    ``sentinel_ms`` ({"pre": [...], "post": [...]}, `contention_sentinel`
+    before and after the rows) goes into the detail only."""
     graph_best = best_at_target(graph_rows)
     best = best_at_target([flat, flat8, graph_best])
 
@@ -341,6 +384,7 @@ def summarize(flat, flat8, graph_rows, classic, build_secs, base_qps, card,
         "graph_build_secs": build_secs,
         "baseline_qps_t16": base_qps,
         "baseline": BASELINE_LABEL,
+        "contention_sentinel_ms": sentinel_ms,
         "wall_secs": round(wall_secs, 1),
         **card,
     }
@@ -386,6 +430,8 @@ def run(args, dev: torch.device, cache: str) -> dict:
 
     log("== ground truth (exact) ==")
     gt_i, gt_d = ground_truth(cache, key, eval_q, base_dev)
+    sentinel_pre = contention_sentinel(base_dev)
+    log(f"contention sentinel (ms): {sentinel_pre}")
     card = card_info(dev)
     base_qps = read_baseline_qps()
     reps = dict(repeats=args.repeats, ramp=args.ramp)
@@ -424,9 +470,12 @@ def run(args, dev: torch.device, cache: str) -> dict:
     flat_w2 = flat_row(base_dev, eval_q, gt_i, gt_d, "f32", **reps)
     flat = pool_flat_windows(flat_w1, flat_w2)
     classic = classic_row(index, base_dev, eval_q, gt_i, gt_d, **reps)
+    sentinel = {"pre": sentinel_pre, "post": contention_sentinel(base_dev)}
+    log(f"contention sentinel (ms): {sentinel}")
 
     headline, detail = summarize(flat, flat8, graph_rows, classic, build_secs,
-                                 base_qps, card, time.time() - t_all)
+                                 base_qps, card, time.time() - t_all,
+                                 sentinel)
     record = {**headline, "detail": detail}
     with open(os.path.join(HERE, DETAIL_FILE), "w") as f:
         json.dump(record, f, indent=1)

@@ -5,8 +5,8 @@ flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
 index, the IVF index, parallel/ (sharded kNN, distributed and
 query-parallel beam search, sharded IVF, in 4 ranks sharing the card) and
-seven CLIs on the same world, with bench_torch.py's rows on the fused
-graph; then the worlds
+seven CLIs on the same world, with bench_torch.py's rows and the
+serving-variance probe on the fused graph; then the worlds
 larger than 1M: the build's slab paths at 4M rows, a 4M x 128 build and
 seeded fused serving, and the index-keyed device corpus at 10M rows.
 
@@ -48,7 +48,15 @@ Phases, one line each before the last:
      in two windows, pooled; int8 flat; the ten seeded fused rows, each
      recall@10 equal to the fused_serve row of the same (expand, seeds,
      L); the classic parity row; the twin's headline JSON; its K1
-     launches;
+     launches; bench_torch.contention_sentinel (a fixed bf16 8,192 x 1M
+     product and min, five timed calls) before and after the rows;
+  8c. probe_variance: scripts/torch_probe_variance.py's phases A
+     (back-to-back trials, each batch timed by CUDA events), B (after
+     allocating and freeing 4 x 1 GiB) and C (after empty_cache and a warm
+     call), PROBE_TRIALS trials each, on the smoke's eval queries and the
+     phase-7 graph with FusedSearcher(max_degree=48, seed_sample=2, bits=8);
+     every trial's recall@10 must equal fused_serve's (4, 40, 56) row; its
+     K1 launches; K1's error flag;
   9. native: the fused index saved through the native host library and
      through the numpy plain version — byte-identical files, equal loads,
      both times; fails unless the library loaded;
@@ -166,6 +174,7 @@ SEEDED_L_SWEEP = ((4, 40, 40), (4, 40, 44), (4, 40, 48), (4, 40, 56),
 TARGET_RECALL = 0.95
 # bench_torch.py's rows in the smoke: one discarded trial, one timed
 BENCH_TWIN_REPS = dict(repeats=1, ramp=1)
+PROBE_TRIALS = 2          # trials a phase of the variance probe (script: 10)
 # scripts/bench_bipartite.py's 1M recipe and sweep
 BIPARTITE_CFG = dict(M_sq=64, M_pjbp=32, metric=METRIC)
 # the script sweeps L = 50, 100, 200, 400; here two of them, for time
@@ -887,6 +896,7 @@ def bench_twin_path(gather, world: dict, fused: dict) -> int:
     base_dev, eval_q = world["base_dev"], world["eval_q"]
     gt_i, gt_d = world["gt_i"], world["gt_d"]
     index = fused["index"]
+    sentinel_pre = bt.contention_sentinel(base_dev)
     gather.reset_launches()
     t0 = time.perf_counter()
     w1 = bt.flat_row(base_dev, eval_q, gt_i, gt_d, "f32", **BENCH_TWIN_REPS)
@@ -901,9 +911,13 @@ def bench_twin_path(gather, world: dict, fused: dict) -> int:
     seconds = time.perf_counter() - t0
     launches = gather.launches
     flag = gather.error_flag_value()
-    head, _ = bt.summarize(flat, flat8, graph_rows, classic,
-                           round(fused["build_s"], 1), bt.read_baseline_qps(),
-                           bt.card_info(base_dev.device), seconds)
+    sentinel = {"pre": sentinel_pre,
+                "post": bt.contention_sentinel(base_dev)}
+    head, detail = bt.summarize(flat, flat8, graph_rows, classic,
+                                round(fused["build_s"], 1),
+                                bt.read_baseline_qps(),
+                                bt.card_info(base_dev.device), seconds,
+                                sentinel)
     for name, row in (("flat_f32", flat), ("flat_int8", flat8)):
         phase("bench_twin_flat", mode=name, qps=row["qps"],
               qps_trials=row["qps_trials"], recall=row["recall"],
@@ -917,6 +931,8 @@ def bench_twin_path(gather, world: dict, fused: dict) -> int:
     phase("bench_twin_classic", L_pq=classic["L_pq"], qps=classic["qps"],
           recall=classic["recall"])
     phase("bench_twin_headline", **head)
+    phase("bench_twin_sentinel", unit="ms",
+          **detail["contention_sentinel_ms"])
     phase("bench_twin", seconds=seconds, k1_launches=launches,
           error_flag=flag, n_eval=eval_q.shape[0], **BENCH_TWIN_REPS)
     for r in graph_rows:
@@ -931,6 +947,47 @@ def bench_twin_path(gather, world: dict, fused: dict) -> int:
           and head["value"] > 0, f"bench twin: headline {head}")
     check(launches > 0, "bench twin: K1 launched 0 times")
     check(flag == 0, "the gather kernel met an out-of-range index (twin)")
+    for when, ts in sentinel.items():
+        check(len(ts) == 5 and ts == sorted(ts) and ts[0] > 0,
+              f"bench twin: sentinel {when} {ts}")
+    return launches
+
+
+def probe_variance_path(port, gather, world: dict, fused: dict) -> int:
+    """Phase 8c: scripts/torch_probe_variance.py's phases A, B and C
+    (PROBE_TRIALS trials each) on this world's eval queries and the phase-7
+    graph. Returns the phase's K1 launches."""
+    pv = _script("torch_probe_variance.py")
+    base_dev = world["base_dev"]
+    serve = {(r["expand"], r["seeds"], r["L_pq"]): r["recall@10"]
+             for r in fused["rows"]}
+    want = serve[pv.EXPAND, pv.SEEDS, pv.L]
+    t0 = time.perf_counter()
+    fs = port.FusedSearcher(fused["index"], base_dev,
+                            max_degree=SEED_MAX_DEGREE,
+                            seed_sample=SEED_SAMPLE)
+    q = port.prepare_vectors(world["eval_q"], METRIC, base_dev.device)
+    gather.reset_launches()
+    pv._search(fs, q[:pv.QB])       # one warm call, as the script
+    torch.cuda.synchronize()
+    recs = pv.run_phases(fs, q, world["gt_i"], PROBE_TRIALS,
+                         emit=lambda r: phase("probe_variance_phase", **r))
+    launches = gather.launches
+    flag = gather.error_flag_value()
+    del fs
+    torch.cuda.empty_cache()
+    phase("probe_variance", seconds=time.perf_counter() - t0,
+          k1_launches=launches, error_flag=flag, trials=PROBE_TRIALS,
+          L_pq=pv.L, fused_serve_recall=want)
+    for r in recs:
+        check(r["recall"] == [want] * PROBE_TRIALS,
+              f"probe_variance {r['label']}: recall@10 {r['recall']} != "
+              f"fused_serve's {want}")
+        check(len(r["per_batch_ms"]) == -(-q.shape[0] // pv.QB),
+              f"probe_variance {r['label']}: {len(r['per_batch_ms'])} "
+              f"batch times")
+    check(launches > 0, "probe_variance: K1 launched 0 times")
+    check(flag == 0, "the gather kernel met an out-of-range index (probe)")
     return launches
 
 
@@ -2134,6 +2191,7 @@ def main() -> None:
     run["fused_neighbors"] = fused["index"].graph.neighbors
     run["fused_ep"] = fused["index"].graph.ep
     k1_twin = bench_twin_path(gather, run, fused)
+    k1_probe = probe_variance_path(port, gather, run, fused)
     native_path(fused["index"])
     k1_bip = bipartite_path(port, gather, run)
     with tempfile.TemporaryDirectory(dir=HERE) as work:
@@ -2152,7 +2210,7 @@ def main() -> None:
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": (run_launches + flat["k1_launches"]
-                      + fused_launches + k1_twin + k1_bip
+                      + fused_launches + k1_twin + k1_probe + k1_bip
                       + ivf["k1_launches"]
                       + k1_par + k1_cli + k1_large + k1_world),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
