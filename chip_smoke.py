@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time both hand-written kernels (the row gather K1 and the binned scan K2),
+time the hand-written kernels (the row gather K1, the binned scan K2 and
+the k-selection K3),
 drive the RoarGraph build-then-search path once at full width, then the
 flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
@@ -14,8 +15,9 @@ seeded fused serving, and the index-keyed device corpus at 10M rows.
 
 Phases, one line each before the last:
   1. device: the card's name and power limit (there is no CPU fallback);
-  2. build_kernel: nvcc compiles csrc/gather.cu and csrc/scan.cu, in
-     parallel, into mysteryann_tpu_torch/build/; ptxas registers / spills;
+  2. build_kernel: nvcc compiles csrc/gather.cu, csrc/scan.cu and
+     csrc/select.cu, in parallel, into mysteryann_tpu_torch/build/; ptxas
+     registers / spills;
   3. kernel: the gather kernel against torch.index_select on the card, bit
      for bit, at the path's shapes and a few odd ones; the out-of-range flag;
      median times of both; then kernel_fused_rows: the same at the fused
@@ -27,6 +29,19 @@ Phases, one line each before the last:
      times of the kernel, its plain version and a tiled bf16 torch.matmul
      of the same operands (the product alone, a yardstick); its bound and
      share;
+  4b. k3_select: the k-selection kernel against topk_smallest_ref on the
+     card, bit for bit in value bits and indices, at the paths' shapes
+     (the seed scan's tile and all 500,000 sample columns at 8,192
+     queries, flat f32 over 1M columns, an IVF step of 8,192 rows of 800
+     and 131,072 such rows, the kNN merge, K2's bin top-k, the IVF probe
+     choice, the IVF exactness gates' k = n = 2,000 and 6,324 on the
+     block queue) and on
+     adversarial rows (the int8 scans' s32 scores as f32, heavy
+     ties, mixed +-0.0, rows of +inf, NaNs, strided and copied views, a
+     few very long rows, rows shorter than a warp, n == k) at k = 1, 10,
+     32, 40, 64, 128, 256 (the warp queue) and 257, 600, 2,000, 8,192
+     (the block queue); int32 scores and k > 8,192 raise; times of the
+     kernel, its plain version and torch.topk, with the bound and share;
   5. main path on the bench's synthetic T2I world: exact kNN (train kNN and
      ground truth), build_roargraph (classic engine), save/load,
      Searcher.search at L = 64, 100, 200; checks on the graph, on recall and
@@ -42,6 +57,9 @@ Phases, one line each before the last:
      the bench's ten (expand, seeds, L) rows, then the classic Searcher on
      the same graph at L=100 (the bench's parity row); one row must reach
      recall@10 >= 0.95;
+  8a. k3_seed_tile: a score tile captured from the fused serving path's own
+     seed scan at (4, 40, 48), K3 against its plain version on it, bit for
+     bit, with both times; a profiler split of one seeded batch;
   8b. bench_twin: bench_torch.py's own row functions (those its main
      calls) on the same base, eval queries and ground truth and on the
      phase-7 graph, one discarded trial and one timed (no build): flat f32
@@ -120,8 +138,11 @@ Phases, one line each before the last:
      generated tiles, K1 against index_select on that index's int8 blocks
      (C = 4 and 64), grouped search at two nprobes reranked from
      regenerated rows, an exactness gate at nprobe = n_clusters.
-Then a JSON line with the kernels' records, and last a JSON line with the
-device. Any failed check exits non-zero before the last line is printed.
+K3's launches are counted over the main path's phases (the exact kNN of
+phases 5 and 15, flat serving, the fused build and serving, the IVF
+sweeps), each of which must launch it. Then a JSON line with the kernels'
+records, and last a JSON line with the device. Any failed check exits
+non-zero before the last line is printed.
 """
 
 from __future__ import annotations
@@ -204,6 +225,32 @@ WORLD_NPROBES, WORLD_RERANK, WORLD_GATE_QUERIES = (32, 128), 100, 256
 WORLD_REDUCED = ("10M of the script's 50M rows; 4,096 of its 16,384 queries; "
                  "nprobe 32, 128 of its 32, 64, 128, 256; no flat-int8 table")
 WORLD_ROW_ATOL = 2e-6     # rows across batch shapes / devices (unit norm)
+SELECT_SOURCE = "mysteryann_tpu_torch/csrc/select.cu"
+SELECT_REPLACES = "mysteryann_tpu/search/seeding.py:54"
+# (name, rows, n, k, reps, trials) of K3's timed shapes: the seed scan's
+# tile (n as _tiled_topk cuts it) and all 500,000 sample columns of the 1M
+# world at 8,192 queries, flat f32 over the 1M base, an IVF step of the
+# grouped scan ([C·qmax, cap] = [8,192, 800]: C = 8,192 // qmax) and 16
+# steps' rows in one call, the kNN's [B, k + k] merge, K2's bin top-k, the
+# IVF probe choice over 2,000 centroids; on the wide route (k > 256) the
+# exactness gates' selection of every cluster (k = n = 2,000 at 1M, 1,024
+# queries; 6,324 at 10M, 256 queries)
+K3_SHAPES = (("seed_scan_tile", 8192, None, 48, 5, 5),
+             ("seed_scan_full", 8192, 500_000, 48, 3, 3),
+             ("flat_f32_full", 8192, 1_000_000, 20, 3, 3),
+             ("ivf_step", 8192, 800, 20, 20, 7),
+             ("ivf_rows_131072", 131072, 800, 20, 20, 7),
+             ("knn_merge", 8192, 128, 64, 20, 7),
+             ("scan_bins", 8192, 4096, 20, 20, 7),
+             ("ivf_topc", 8192, 2000, 64, 20, 7),
+             ("wide_gate_1m", 1024, 2000, 2000, 10, 5),
+             ("wide_gate_10m", 256, 6324, 6324, 10, 5))
+K3_LONG_ROW = 1_000_000     # the few-rows case: a block of warps a row
+# every queue width and its edges, the warp's and the block's
+K3_KS = (1, 10, 32, 40, 64, 128, 256, 257, 600, 2000, 8192)
+# K3's launches in the paths' own runs, by phase: the builds' exact kNN
+# (main_path, large_knn), flat serving, the fused build and serving, IVF
+K3_LAUNCHES: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -372,11 +419,17 @@ def is_k1_kernel(name: str) -> bool:
     return "msann_k1" in name
 
 
+def is_k3_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is one of K3's (csrc/select.cu keeps
+    every kernel in namespace msann_k3)."""
+    return "msann_k3" in name
+
+
 def device_split(fn, top: int = 8) -> dict:
     """Device time of one call of ``fn`` from a torch.profiler trace: the
     wall time (profiled), the kernels' summed time, their busy share of
-    the first-to-last kernel span, K1's share, and the ``top`` kernels by
-    time."""
+    the first-to-last kernel span, K1's and K3's ms, and the ``top``
+    kernels by time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -398,8 +451,9 @@ def device_split(fn, top: int = 8) -> dict:
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
     k1 = sum(v for k, v in by_name.items() if is_k1_kernel(k))
+    k3 = sum(v for k, v in by_name.items() if is_k3_kernel(k))
     out.update(device_ms=busy / 1e3, busy_share=busy / max(1, span),
-               k1_ms=k1 / 1e3,
+               k1_ms=k1 / 1e3, k3_ms=k3 / 1e3,
                top={k[:60]: v / 1e3 for k, v in sorted(
                    by_name.items(), key=lambda kv: -kv[1])[:top]})
     return out
@@ -531,6 +585,7 @@ def reachable_all(neighbors: np.ndarray, ep: int) -> bool:
 def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
               query_batch: int = 8192) -> dict:
     """Phase 4: data → exact kNN → build → save/load → search → recall."""
+    from mysteryann_tpu_torch.ops import select
     from mysteryann_tpu_torch.utils.trace import tracer
 
     t0 = time.perf_counter()
@@ -542,6 +597,7 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
           seconds=time.perf_counter() - t0)
 
     gather.reset_launches()
+    select.reset_launches()
     base_dev = port.prepare_vectors(base, METRIC, dev)
     t0 = time.perf_counter()
     _, knn = port.exact_knn(train_q, base_dev, k=64, metric=METRIC,
@@ -560,7 +616,10 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
                             f"{gt_agree}")
     check(np.isfinite(gt_d).all() and gt_i.shape == (n_eval, K),
           "ground truth not finite / wrong shape")
-    phase("knn", train_knn_s=t_knn, gt_s=t_gt, gt_vs_float64=gt_agree)
+    k3_knn = select.launches
+    phase("knn", train_knn_s=t_knn, gt_s=t_gt, gt_vs_float64=gt_agree,
+          k3_launches=k3_knn, k3_wide_launches=select.wide_launches)
+    check(k3_knn > 0, "the exact kNN launched K3 0 times")
 
     cfg = port.BuildConfig(M_sq=64, M_pjbp=32, L_pjpq=128, metric=METRIC,
                            query_batch=8192, search_batch=8192,
@@ -620,8 +679,10 @@ def main_path(port, gather, dev, n_base: int, n_train: int, n_eval: int,
           f"< {RECALL_FLOOR}")
     launches = gather.launches
     flag = gather.error_flag_value()
+    K3_LAUNCHES["main_path"] = select.launches
     phase("main_path", k1_launches_build=build_launches,
           k1_launches_search=search_launches, k1_launches_total=launches,
+          k3_launches_knn=k3_knn, k3_launches_total=select.launches,
           error_flag=flag)
     check(flag == 0, "the gather kernel met an out-of-range index")
     return {"launches": launches, "base": base, "base_dev": base_dev,
@@ -720,6 +781,197 @@ def kernel_scan(scan, dev, n: int = 1_000_000, n_q: int = 8192,
             "bound_by": bound_by}
 
 
+def k3_plain(x: torch.Tensor, k: int, chunk_bytes: int = 2 << 30):
+    """The plain version (``topk_smallest_ref``) over row blocks of at most
+    ``chunk_bytes`` of input: its int64 key and torch.topk's scratch for a
+    whole [8,192, 1M] block would not fit beside it. Rows are independent,
+    so the blocks' results are the whole call's."""
+    from mysteryann_tpu_torch.ops.sort import topk_smallest_ref
+
+    step = max(1, chunk_bytes // max(1, x.shape[-1] * x.element_size()))
+    if x.shape[0] <= step:
+        return topk_smallest_ref(x, k)
+    outs = [topk_smallest_ref(x[r:r + step], k)
+            for r in range(0, x.shape[0], step)]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
+def k3_same(select, x: torch.Tensor, k: int, tag: str) -> None:
+    """K3 against its plain version, bit for bit in value bits and
+    indices; fails with the count of differing entries otherwise."""
+    from mysteryann_tpu_torch.ops.sort import topk_smallest
+
+    before = select.launches
+    got = topk_smallest(x, k)
+    check(select.launches == before + 1,
+          f"K3 {tag}: the call did not launch the kernel")
+    want = k3_plain(x, k)
+    torch.cuda.synchronize()
+    same_i = torch.equal(got[1], want[1])
+    same_v = torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if not (same_i and same_v):
+        bad = int((got[1] != want[1]).sum())
+        fail(f"K3 differs from topk_smallest_ref on {tag} "
+             f"{list(x.shape)} {x.dtype} k={k}: {bad} indices differ, "
+             f"value bits equal: {same_v}")
+
+
+def k3_bound_ms(rows: int, n: int, k: int, elem: int = 4) -> float:
+    """The least time of a selection: every element read once, k values
+    and int64 indices written a row, at HBM_BYTES_S."""
+    return (rows * n * elem + rows * k * (elem + 8)) / HBM_BYTES_S * 1e3
+
+
+def k3_timings(select, x: torch.Tensor, k: int, reps: int,
+               trials: int) -> dict:
+    """K3, its plain version and torch.topk (the one PyTorch call for the
+    function, tie order aside) on ``x``: ms by CUDA events, the bound and
+    the share, the plan."""
+    from mysteryann_tpu_torch.ops.sort import topk_smallest
+
+    rows, n = x.shape[0], x.shape[-1]
+    big = reps < 20
+    t = {"rows": rows, "n": n, "k": k,
+         "plan": select.plan_for(x, k)._asdict(),
+         "kernel_ms": time_ms(lambda: topk_smallest(x, k), reps, trials),
+         "plain_ms": time_ms(lambda: k3_plain(x, k), 1 if big else reps,
+                             min(trials, 3) if big else trials),
+         "library_ms": time_ms(lambda: torch.topk(x, k, dim=-1,
+                                                  largest=False),
+                               reps, trials),
+         "bound_ms": k3_bound_ms(rows, n, k, x.element_size())}
+    t["share"] = t["bound_ms"] / t["kernel_ms"]
+    return t
+
+
+def kernel_select(select, dev) -> dict:
+    """Phase 4b: K3 against its plain version, bit for bit, at the shapes
+    the paths give it and on adversarial rows; times at the path shapes.
+    The launches made here are outside every path's count."""
+    from mysteryann_tpu_torch.ops import knn
+    from mysteryann_tpu_torch.ops.sort import topk_smallest
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    timings = {}
+    for name, rows, n, k, reps, trials in K3_SHAPES:
+        if n is None:
+            # the seed scan's tile, as _tiled_topk cuts the 1-in-2 sample of
+            # the 1M world with the card this empty
+            n = knn._tile_rows(rows, K3_SHAPES[1][2], dev)
+        x = torch.randn((rows, n), generator=g, device=dev)
+        k3_same(select, x, k, name)
+        timings[name] = k3_timings(select, x, k, reps, trials)
+        del x
+        torch.cuda.empty_cache()
+
+    # adversarial rows, bit for bit at every k
+    def ties(rows, n, lim=3, dtype=torch.float32):
+        return torch.randint(-lim, lim + 1, (rows, n), generator=g,
+                             device=dev).to(dtype)
+
+    zeros = torch.where(torch.rand((512, 3000), generator=g, device=dev)
+                        < 0.5, 0.0, -0.0)
+    zeros[torch.rand(zeros.shape, generator=g, device=dev) < 0.2] = 1.0
+    infs = torch.full((600, 800), float("inf"), device=dev)
+    infs[1::3] = torch.randn((200, 800), generator=g, device=dev)
+    infs[2::3, :400] = torch.randn((200, 400), generator=g, device=dev)
+    nans = torch.randn((256, 2000), generator=g, device=dev)
+    nans[torch.rand(nans.shape, generator=g, device=dev) < 0.05] = float("nan")
+    nans[::2, :50] = -float("nan")
+    # the int8 scans' raw scores: -(s8 . s8) products, ties everywhere
+    q8 = torch.randint(-127, 128, (4096, DIM), generator=g, device=dev,
+                       dtype=torch.int8)
+    b8 = torch.randint(-3, 4, (20000, DIM), generator=g, device=dev,
+                       dtype=torch.int8)
+    s32 = -torch._int_mm(q8, b8.t())
+    wide = torch.randn((1536, 1100), generator=g, device=dev)
+    adversarial = {
+        "s32_scores_f32": s32.float(),
+        "small_int_ties": ties(2048, 5000),
+        "signed_zeros": zeros,
+        "inf_rows": infs,
+        "nan_rows": nans,
+        "col_slice": wide[:, 50:1050],
+        "chunk_view": wide.view(16, 96, 1100)[:, :, :800],
+        "col_step": wide[:, ::2],
+        "few_long_rows": torch.randn((3, K3_LONG_ROW), generator=g,
+                                     device=dev),
+        "forty_long_rows": ties(40, K3_LONG_ROW // 5, lim=20),
+        "short_rows": ties(4096, 17),
+    }
+    cases = 0
+    for name, x in adversarial.items():
+        for k in K3_KS:
+            if k <= x.shape[-1]:
+                k3_same(select, x, k, name)
+                cases += 1
+    for k in K3_KS:                         # n == k
+        k3_same(select, ties(1000, k, lim=2), k, f"n_equals_k_{k}")
+        cases += 1
+    # what the kernel does not take raises: int32 scores, k past the block
+    # queue
+    for bad, k, err in ((s32, 10, TypeError),
+                        (s32.float(), select.MAX_WIDE_K + 1, ValueError)):
+        try:
+            topk_smallest(bad, k)
+        except err:
+            cases += 1
+        else:
+            fail(f"K3 took {bad.dtype} k={k} instead of raising "
+                 f"{err.__name__}")
+    del adversarial, zeros, infs, nans, q8, b8, s32, wide
+    torch.cuda.empty_cache()
+    phase("k3_select", bit_identical=True, adversarial_cases=cases,
+          timings=timings)
+    t = timings["seed_scan_tile"]
+    return {"max_abs_err": 0.0, "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "timings": timings}
+
+
+def k3_seed_tile(port, select, world: dict, index,
+                 query_batch: int = 8192) -> dict:
+    """Phase 8a: a score tile captured from the fused serving path's own
+    seed scan (one seeded batch at (4, 40, 48)), K3 against its plain
+    version on it, bit for bit, with both times; then a profiler split of
+    one such batch. Outside every path's count."""
+    from mysteryann_tpu_torch.ops import knn
+
+    fs = port.FusedSearcher(index, world["base_dev"],
+                            max_degree=SEED_MAX_DEGREE,
+                            seed_sample=SEED_SAMPLE, bits=8)
+    q = world["eval_q"][:query_batch]
+    captured = []
+    select_fn = knn.topk_smallest
+
+    def capture(x, k):
+        if not captured and x.shape[-1] > 4 * k:   # a score tile, no merge
+            captured.append((x.clone(), k))
+        return select_fn(x, k)
+
+    knn.topk_smallest = capture
+    try:
+        fs.search(q, k=K, L=48, query_batch=query_batch, expand=4, seeds=40)
+    finally:
+        knn.topk_smallest = select_fn
+    check(bool(captured), "the seeded search selected no score tile")
+    tile, k = captured[0]
+    k3_same(select, tile, k, "the fused serving seed-scan tile")
+    t = k3_timings(select, tile, k, 5, 5)
+    del captured, tile
+    split = device_split(lambda: fs.search(
+        q, k=K, L=48, query_batch=query_batch, expand=4, seeds=40,
+        device_out=True), top=12)
+    del fs
+    torch.cuda.empty_cache()
+    phase("k3_seed_tile", bit_identical=True, timings=t,
+          seeded_batch_split=split, queries=query_batch,
+          row=[4, 40, 48])
+    return t
+
+
 def scan_batch_split(idx, q: torch.Tensor) -> dict:
     """Device time of one scan-precision FlatIndex batch by stage, from a
     torch.profiler trace: K2, then the bin top-k and column decode (the
@@ -758,9 +1010,11 @@ def scan_batch_split(idx, q: torch.Tensor) -> dict:
 def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
               ) -> dict:
     """Phase 6: FlatIndex in four precisions on the main path's world."""
+    from mysteryann_tpu_torch.ops import select
+
     base_dev, eval_q = world["base_dev"], world["eval_q"]
     n = base_dev.shape[0]
-    k1 = k2 = 0
+    k1 = k2 = k3 = 0
     for prec in ("f32", "bf16", "int8", "scan"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -770,8 +1024,9 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
         t_build = time.perf_counter() - t0
         gather.reset_launches()
         scan.reset_launches()
+        select.reset_launches()
         r = idx.benchmark(eval_q, k=K, query_batch=query_batch)
-        l1, l2 = gather.launches, scan.launches
+        l1, l2, l3 = gather.launches, scan.launches, select.launches
         split = (scan_batch_split(idx, port.prepare_vectors(
             eval_q[:query_batch], METRIC, base_dev.device))
             if prec == "scan" else None)
@@ -785,6 +1040,7 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
                "rderr": port.compute_rderr(r["dists"], world["gt_d"], K,
                                            METRIC),
                "build_s": t_build, "k1_launches": l1, "k2_launches": l2,
+               "k3_launches": l3,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if split is not None:
             row["batch_split"] = split
@@ -796,8 +1052,11 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
             check(l1 > 0, f"flat {prec} launched the gather kernel 0 times")
         if prec == "scan":
             check(l2 > 0, "flat scan launched the scan kernel 0 times")
+        check(l3 > 0, f"flat {prec} launched K3 0 times")
         k1 += l1
         k2 += l2
+        k3 += l3
+    K3_LAUNCHES["flat"] = k3
     flag = gather.error_flag_value()
     check(flag == 0, "the gather kernel met an out-of-range index (flat)")
     return {"k1_launches": k1, "k2_launches": k2}
@@ -807,6 +1066,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     """Phases 7-8: the bench's fused build recipe, then seeded FusedSearcher
     serving over the bench's sweep and the classic parity row."""
     from mysteryann_tpu_torch.graph.roargraph import _resolve_engine
+    from mysteryann_tpu_torch.ops import select
     from mysteryann_tpu_torch.utils.trace import tracer
 
     base_dev, eval_q = world["base_dev"], world["eval_q"]
@@ -819,6 +1079,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     tr.reset()
     torch.cuda.reset_peak_memory_stats()
     gather.reset_launches()
+    select.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = port.build_roargraph(base_dev, world["train_q"], world["knn"],
@@ -826,6 +1087,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     build_launches = gather.launches
+    k3_build = select.launches
     spans = tr.summary()["spans"]
     st = index.graph.degree_stats()
     reach = reachable_all(index.graph.neighbors, index.graph.ep)
@@ -833,7 +1095,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     phase("fused_build", engine=engine, seconds=t_build,
           phases_s={k: v["total_s"] for k, v in spans.items()},
           degree=st, all_reachable=reach, k1_launches=build_launches,
-          error_flag=flag,
+          k3_launches=k3_build, error_flag=flag,
           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     check(build_launches > 0, "the fused build launched K1 0 times")
     check(flag == 0, "the gather kernel met an out-of-range index (build)")
@@ -847,6 +1109,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     fs = port.FusedSearcher(index, base_dev, max_degree=SEED_MAX_DEGREE,
                             seed_sample=SEED_SAMPLE, bits=8)
     gather.reset_launches()
+    select.reset_launches()
     rows = []
     for expand, seeds, L in SEEDED_L_SWEEP:
         r = fs.benchmark(eval_q, k=K, L=L, query_batch=query_batch,
@@ -862,16 +1125,19 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
         rows.append(row)
         phase("fused_serve", **row)
     serve_launches = gather.launches
+    k3_serve = select.launches
+    K3_LAUNCHES["fused"] = k3_build + k3_serve
     peak = torch.cuda.max_memory_allocated() / 2**30
     del fs
     torch.cuda.empty_cache()
     best = max(r["recall@10"] for r in rows)
     at_target = [r for r in rows if r["recall@10"] >= TARGET_RECALL]
     phase("fused_serve_summary", k1_launches=serve_launches,
-          best_recall=best, peak_gib=peak,
+          k3_launches=k3_serve, best_recall=best, peak_gib=peak,
           best_qps_at_target=max((r["qps"] for r in at_target),
                                  default=None))
     check(serve_launches > 0, "fused serving launched K1 0 times")
+    check(k3_serve > 0, "fused serving launched K3 0 times")
     check(bool(at_target), f"no fused row reached recall@10 >= "
                            f"{TARGET_RECALL} (best {best:.4f})")
 
@@ -1125,11 +1391,14 @@ def ivf_path(port, gather, world: dict, query_batch: int = 8192,
     exactness gate, grouped vs ungrouped, streaming build, K1 at the block
     shapes. Returns K1 launches and K1's IVF-block timings. With
     ``save_dir`` each index is saved there as ``ivf_{store}.npz``."""
+    from mysteryann_tpu_torch.ops import select
+
     base_dev, eval_q = world["base_dev"], world["eval_q"]
     gt_i = world["gt_i"]
     n, d = base_dev.shape
     exact_q = eval_q[:1024]
     launches, k1_blocks, rows, centroids = 0, {}, [], {}
+    K3_LAUNCHES["ivf"] = 0
     for store in ("f32", "int8"):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -1147,6 +1416,7 @@ def ivf_path(port, gather, world: dict, query_batch: int = 8192,
         # K1's count covers the grouped sweep and nothing else: the gate,
         # the ungrouped parity run and the profiled batch stay outside it
         gather.reset_launches()
+        select.reset_launches()
         for nprobe in IVF_NPROBES:
             r = idx.benchmark(eval_q, k=K, nprobe=nprobe,
                               query_batch=query_batch, rerank=rerank)
@@ -1160,16 +1430,25 @@ def ivf_path(port, gather, world: dict, query_batch: int = 8192,
                                                METRIC)}
             rows.append(row)
             phase("ivf", **row)
-        sweep_launches = gather.launches
-        phase("ivf_sweep", store=store, k1_launches=sweep_launches)
+        sweep_launches, k3_sweep = gather.launches, select.launches
+        phase("ivf_sweep", store=store, k1_launches=sweep_launches,
+              k3_launches=k3_sweep)
         check(sweep_launches > 0,
               f"the ivf {store} grouped sweep launched K1 0 times")
+        check(k3_sweep > 0, f"the ivf {store} grouped sweep launched K3 0 "
+                            f"times")
+        K3_LAUNCHES["ivf"] += k3_sweep
         launches += sweep_launches
+        wide0 = select.wide_launches
         ids, _ = idx.search(exact_q, K, nprobe=idx.n_clusters,
                             query_batch=exact_q.shape[0], rerank=rerank)
         exact = port.compute_recall(ids, gt_i[:1024], K)
+        wide = select.wide_launches - wide0
         phase("ivf_exact", store=store, nprobe=idx.n_clusters,
-              queries=exact_q.shape[0], **{"recall@10": exact})
+              queries=exact_q.shape[0], **{"recall@10": exact},
+              k3_wide_launches=wide)
+        check(wide > 0, f"the ivf {store} gate (nprobe = n_clusters) did not "
+                        f"select through K3's block queue")
         check(exact >= IVF_EXACT_FLOORS[store],
               f"ivf {store} at nprobe = n_clusters: recall@10 {exact:.4f} "
               f"< {IVF_EXACT_FLOORS[store]}")
@@ -1952,6 +2231,8 @@ def large_build(port, gather, dev) -> int:
     from mysteryann_tpu_torch.search.fused import _row_bytes
     from mysteryann_tpu_torch.utils.trace import tracer
 
+    from mysteryann_tpu_torch.ops import select
+
     drv = _script("torch_bench_4m_fused.py")
     n = LARGE_N
     t0 = time.perf_counter()
@@ -1959,6 +2240,7 @@ def large_build(port, gather, dev) -> int:
     t_data = time.perf_counter() - t0
     base_dev = port.prepare_vectors(base, METRIC, dev)
     del base
+    select.reset_launches()
     t0 = time.perf_counter()
     gt_d, gt_i = port.exact_knn(eval_q, base_dev, k=K, metric=METRIC,
                                 query_batch=4096, base_tile=131072,
@@ -1968,9 +2250,11 @@ def large_build(port, gather, dev) -> int:
     _, knn = port.exact_knn(train_q, base_dev, k=drv.M_SQ, metric=METRIC,
                             query_batch=8192, base_tile=131072)
     t_knn = time.perf_counter() - t0
+    K3_LAUNCHES["large_knn"] = select.launches
     phase("large_data", n_base=n, n_train=LARGE_TRAIN, n_eval=LARGE_EVAL,
           dim=DIM, data_s=t_data, gt_s=t_gt, train_knn_s=t_knn,
-          reduced=LARGE_REDUCED)
+          k3_launches=select.launches, reduced=LARGE_REDUCED)
+    check(select.launches > 0, "the 4M exact kNN launched K3 0 times")
 
     cfg = drv.build_config(LARGE_PASSES, "auto")
     plan = _build_memory_plan(cfg, n, DIM, device_memory(dev))
@@ -2159,7 +2443,7 @@ def main() -> None:
              "CUDA device and has no CPU fallback")
     t_start = time.perf_counter()
     port = import_port()
-    from mysteryann_tpu_torch.ops import gather, scan
+    from mysteryann_tpu_torch.ops import gather, scan, select
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2172,12 +2456,13 @@ def main() -> None:
     phase("device", name=name, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    # one nvcc per source, both started together
-    with ThreadPoolExecutor(2) as ex:
-        futures = [ex.submit(m.build, True) for m in (gather, scan)]
+    # one nvcc per source, all started together
+    kernels = (gather, scan, select)
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        futures = [ex.submit(m.build, True) for m in kernels]
         secs = [f.result() for f in futures]
-    for m, src, sec in ((gather, KERNEL_SOURCE, secs[0]),
-                        (scan, SCAN_SOURCE, secs[1])):
+    for m, src, sec in zip(kernels, (KERNEL_SOURCE, SCAN_SOURCE,
+                                     SELECT_SOURCE), secs):
         phase("build_kernel", source=src, seconds=sec,
               ptxas=[ln.strip() for ln in m.build_log.splitlines()
                      if "registers" in ln or "spill" in ln])
@@ -2185,9 +2470,11 @@ def main() -> None:
     k1 = kernel_checks(gather, dev)
     kernel_fused_rows(gather, dev)
     k2 = kernel_scan(scan, dev)
+    k3 = kernel_select(select, dev)
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
     flat = flat_path(port, gather, scan, run)
     fused = fused_path(port, gather, run)
+    k3_seed_tile(port, select, run, fused["index"])
     run["fused_neighbors"] = fused["index"].graph.neighbors
     run["fused_ep"] = fused["index"].graph.ep
     k1_twin = bench_twin_path(gather, run, fused)
@@ -2204,6 +2491,10 @@ def main() -> None:
     large_fold(dev)
     k1_large = large_build(port, gather, dev)
     k1_world = device_world(port, gather, dev)
+    phase("k3_launches", **K3_LAUNCHES)
+    check(all(K3_LAUNCHES.get(p, 0) > 0 for p in
+              ("main_path", "flat", "fused", "ivf", "large_knn")),
+          f"a main-path phase launched K3 0 times: {K3_LAUNCHES}")
     phase("smoke", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
@@ -2220,7 +2511,13 @@ def main() -> None:
          "replaces": SCAN_REPLACES, "launches": flat["k2_launches"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]}]}),
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+        {"name": "topk_smallest", "route": "cuda", "source": SELECT_SOURCE,
+         "replaces": SELECT_REPLACES,
+         "launches": sum(K3_LAUNCHES.values()),
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

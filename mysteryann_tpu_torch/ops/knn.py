@@ -9,13 +9,15 @@ distances fold into a running top-k. It produces both the build's input
 
 Selection is exact everywhere. Ties are broken by the lower base index,
 as ``lax.top_k`` does, by selecting on the composite (distance, index) key
-(``ops.sort.topk_smallest``). The TPU package's ``approx=True`` path
-(``lax.approx_min_k``) becomes the same exact selection, so ``approx`` and
+(``ops.sort.topk_smallest``: the k-selection kernel K3 on the card). The TPU
+package's ``approx=True`` path (``lax.approx_min_k``, the TPU's
+partial-reduce) becomes the same exact selection, so ``approx`` and
 ``recall_target`` change nothing here.
 
-PyTorch does not fuse the matmul into the selection, so every tile's
-[B, tile] distance block and its int64 selection key are materialized: the
-tile is sized from the memory the device has free (``_tile_rows``).
+The matmul is not fused into the selection, so every tile's
+[B, tile] distance block is materialized, and on the CPU its int64
+selection key too: the tile is sized from the memory the device has free
+and the bytes the selection holds there (``_tile_rows``).
 
 The int8 scans (``int8_knn_device``, ``int8_global_knn_device``) take their
 s8 · s8 → s32 products from a library matmul, as the JAX package leaves
@@ -32,23 +34,27 @@ import numpy as np
 import torch
 
 from mysteryann_tpu_torch.ops.distances import Metric, pairwise_dist, prepare_vectors
-from mysteryann_tpu_torch.ops.sort import topk_smallest
+from mysteryann_tpu_torch.ops.sort import selection_bytes, topk_smallest
 
-# bytes of temporaries per element of a [B, tile] block: the f32 distances,
-# their int32 order image and the int64 selection key, plus topk's scratch
-_BYTES_PER_ELEM = 48
+# bytes of temporaries per element of a [B, tile] block, besides what the
+# selection holds (ops/sort.selection_bytes): the f32 distances and the
+# score tile's own temporaries (a matmul result beside its negation, the
+# int8 scans' s32 product)
+_TILE_BYTES_PER_ELEM = 16
 _CPU_BLOCK_BYTES = 256 << 20
 
 
 def _tile_rows(n_queries: int, tile: int, device: torch.device) -> int:
-    """Largest base tile (≤ ``tile``) whose temporaries fit a quarter of the
-    device's free memory (a fixed 256 MB block on the CPU)."""
+    """Largest base tile (≤ ``tile``) whose temporaries, the score tile's
+    and its selection's, fit a quarter of the device's free memory (a fixed
+    256 MB block on the CPU)."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         budget = free // 4
     else:
         budget = _CPU_BLOCK_BYTES
-    fit = budget // max(1, n_queries * _BYTES_PER_ELEM)
+    per_elem = _TILE_BYTES_PER_ELEM + selection_bytes(device)
+    fit = budget // max(1, n_queries * per_elem)
     return int(max(256, min(tile, fit)))
 
 

@@ -5,6 +5,9 @@ CUDA source on one card, in turns.
     python scripts/torch_kernel_ab.py gather --other OLD/mysteryann_tpu_torch/csrc/gather.cu
     python scripts/torch_kernel_ab.py gather --shapes f32_1M,ivf_i8   # name prefixes
     python scripts/torch_kernel_ab.py scan --other OLD/scan.cu [--n --queries --dim]
+    python scripts/torch_kernel_ab.py select                        # K3
+    python scripts/torch_kernel_ab.py select --other OLD/mysteryann_tpu_torch/csrc/select.cu
+    python scripts/torch_kernel_ab.py select --shapes seed,ivf       # name prefixes
 
 K1, the row gather: every version is timed through its own Python wrapper,
 so host-launched times include each design's host path. ``--other`` names
@@ -28,6 +31,19 @@ K2, the binned scan: each ``--other`` is bound by its C entry point; checked
 bit for bit against ``binned_scan_ref`` on dyadic data and timed by CUDA
 events (median of 5 trials of 3), with its bound at 989 TFLOP/s (bf16).
 
+K3, the k-selection behind ``ops/sort.topk_smallest``: at every shape of
+SELECT_SHAPES (the shapes the port's paths give it) each version (this
+checkout's and each ``--other``'s, through the ``ops/select.py`` beside it)
+is checked bit for bit against the composite-key plain version
+(``topk_smallest_ref``, in row blocks of 2 GB of input, as
+``chip_smoke.k3_plain``) on Gaussian scores, then timed graph-timed
+(``reps`` calls replayed from one CUDA graph) and host-launched, in the
+order others, this, this, others reversed; the plain version and
+``torch.topk(x, k, largest=False)`` (the library call, tie order aside)
+the same way, once each; host enqueue us per call where the bound is under
+a millisecond (there the host path matters). The bound counts the input
+read once and k values and int64 indices written a row at 3.35 TB/s.
+
 Prints the card's name and power limit first, then every build's ptxas
 lines.
 """
@@ -48,9 +64,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 from chip_smoke import (BF16_FLOP_S, HBM_BYTES_S, enqueue_us,  # noqa: E402
-                        index_sets, random_bytes, rotating, time_ms,
-                        time_ms_graph)
-from mysteryann_tpu_torch.ops import gather, scan  # noqa: E402
+                        index_sets, k3_bound_ms, k3_plain, random_bytes,
+                        rotating, time_ms, time_ms_graph)
+from mysteryann_tpu_torch.ops import gather, scan, select  # noqa: E402
 from mysteryann_tpu_torch.ops._nvcc import build_library  # noqa: E402
 
 # (name, table shape, dtype, rows per call): the narrow rows of the graph
@@ -76,6 +92,30 @@ GATHER_SHAPES = (
     ("ivf_i8_C64", (2000, 800, 128), torch.int8, 64),
     ("ivf10m_i8_C4", (6324, 2080, 128), torch.int8, 4),
     ("ivf10m_i8_C64", (6324, 2080, 128), torch.int8, 64),
+)
+
+
+# (name, rows, n, k, reps): the seed scan over all 500,000 sample columns of
+# the 1M world at 8,192 queries and at the tile _tiled_topk cuts with the
+# card empty, flat f32 over the 1M base, a train-kNN tile (8,192 queries x
+# 65,536 base rows, M_sq 64), an IVF step of the grouped scan ([C·qmax,
+# cap] = [8,192, 800]) and 16 steps' rows in one call, the kNN's [B, k + k]
+# merge, K2's bin top-k, the IVF probe choice, and on the wide route the
+# probe choice at nprobe 300 and the exactness gates' k = n = 2,000 (1M
+# world, 1,024 queries) and 6,324 (10M world, 256 queries)
+SELECT_SHAPES = (
+    ("seed_scan_full", 8192, 500_000, 48, 3),
+    ("seed_scan_tile", 8192, 161_104, 48, 5),
+    ("flat_f32_full", 8192, 1_000_000, 20, 3),
+    ("knn_tile", 8192, 65_536, 64, 10),
+    ("ivf_step", 8192, 800, 20, 20),
+    ("ivf_rows_131072", 131072, 800, 20, 20),
+    ("knn_merge", 8192, 128, 64, 20),
+    ("scan_bins", 8192, 4096, 20, 20),
+    ("ivf_topc", 8192, 2000, 64, 20),
+    ("wide_topc_300", 8192, 2000, 300, 10),
+    ("wide_gate_1m", 1024, 2000, 2000, 10),
+    ("wide_gate_10m", 256, 6324, 6324, 10),
 )
 
 
@@ -185,6 +225,78 @@ def run_gather(args, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def load_select(source: str, tag: str):
+    """The wrapper module of another tree's ``csrc/select.cu``: its
+    ``ops/select.py``, bound to that source."""
+    wrapper = os.path.join(os.path.dirname(os.path.dirname(source)), "ops",
+                           "select.py")
+    if not os.path.exists(wrapper):
+        sys.exit(f"no ops/select.py beside {source}")
+    spec = importlib.util.spec_from_file_location(f"_k3_{tag}", wrapper)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.SOURCE = source
+    return mod
+
+
+def _readings(fn, reps: int, enqueue: bool) -> dict:
+    trials = 7 if reps >= 10 else 3
+    out = {"graph_ms": time_ms_graph(fn, reps, trials),
+           "host_ms": time_ms(fn, reps, trials)}
+    if enqueue:
+        out["enqueue_us"] = enqueue_us(fn, calls=400, chunk=40)
+    return out
+
+
+def run_select(args, dev) -> None:
+    versions = {"this": select}
+    others = [f"other{i}" for i in range(len(args.other))]
+    for name, path in zip(others, args.other):
+        versions[name] = load_select(os.path.abspath(path), name)
+    for name, mod in versions.items():
+        mod.build(force=True)
+        print(json.dumps({"build": name, "source": mod.SOURCE,
+                          "ptxas": _ptxas(mod.build_log)}), flush=True)
+    order = others + ["this", "this"] + others[::-1]
+    wanted = args.shapes.split(",") if args.shapes else None
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    for name, rows, n, k, reps in SELECT_SHAPES:
+        if wanted and not any(name.startswith(w) for w in wanted):
+            continue
+        x = torch.randn((rows, n), generator=g, device=dev)
+        want = k3_plain(x, k)
+        for ver, mod in versions.items():
+            got = mod.topk_smallest_cuda(x, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[1], want[1])
+                    and torch.equal(got[0].view(torch.int32),
+                                    want[0].view(torch.int32))):
+                sys.exit(f"{ver}: differs from the plain version at {name}")
+        del got, want
+        bound = k3_bound_ms(rows, n, k)
+        enqueue = bound < 1.0
+        times = {v: [] for v in versions}
+        for ver in order:
+            times[ver].append(_readings(
+                lambda m=versions[ver]: m.topk_smallest_cuda(x, k), reps,
+                enqueue))
+        plain = _readings(lambda: k3_plain(x, k), max(1, reps // 3),
+                          enqueue)
+        library = _readings(lambda: torch.topk(x, k, dim=-1, largest=False),
+                            reps, enqueue)
+        print(json.dumps({
+            "kernel": "select", "shape": name, "rows": rows, "n": n, "k": k,
+            "plan": select.plan_for(x, k)._asdict(), "bit_identical": True,
+            "bound_ms": bound, "versions": times, "plain": plain,
+            "library": library,
+            "share_graph": {v: bound / min(t["graph_ms"] for t in r)
+                            for v, r in times.items()},
+            "sources": dict(zip(others, args.other))}), flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def run_scan(args, dev) -> None:
     argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4 \
         + [ctypes.c_void_p] * 3
@@ -231,11 +343,12 @@ def run_scan(args, dev) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("kernel", choices=("gather", "scan"))
+    p.add_argument("kernel", choices=("gather", "scan", "select"))
     p.add_argument("--other", action="append", default=[],
                    help="another source of the same kernel (repeatable)")
     p.add_argument("--shapes", default="",
-                   help="gather: comma-separated prefixes of shape names")
+                   help="gather, select: comma-separated prefixes of shape "
+                        "names")
     p.add_argument("--n", type=int, default=1_000_000, help="scan: rows")
     p.add_argument("--queries", type=int, default=8192, help="scan: queries")
     p.add_argument("--dim", type=int, default=128, help="scan: dimension")
@@ -247,7 +360,8 @@ def main() -> None:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    (run_gather if args.kernel == "gather" else run_scan)(args, dev)
+    {"gather": run_gather, "scan": run_scan,
+     "select": run_select}[args.kernel](args, dev)
 
 
 if __name__ == "__main__":
