@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check and
-time the hand-written kernels (the row gather K1, the binned scan K2 and
-the k-selection K3),
+time the hand-written kernels (the row gather K1, the binned scan K2, the
+k-selection K3 and the bf16 score product fused with it, K3f),
 drive the RoarGraph build-then-search path once at full width, then the
 flat serving path in four precisions, the fused engine (the bench's build
 recipe and its seeded serving sweep), native persistence, the bipartite
@@ -15,9 +15,9 @@ seeded fused serving, and the index-keyed device corpus at 10M rows.
 
 Phases, one line each before the last:
   1. device: the card's name and power limit (there is no CPU fallback);
-  2. build_kernel: nvcc compiles csrc/gather.cu, csrc/scan.cu and
-     csrc/select.cu, in parallel, into mysteryann_tpu_torch/build/; ptxas
-     registers / spills;
+  2. build_kernel: nvcc compiles csrc/gather.cu, csrc/scan.cu,
+     csrc/select.cu and csrc/score_select.cu, in parallel, into
+     mysteryann_tpu_torch/build/; ptxas registers / spills;
   3. kernel: the gather kernel against torch.index_select on the card, bit
      for bit, at the path's shapes and a few odd ones; the out-of-range flag;
      median times of both; then kernel_fused_rows: the same at the fused
@@ -34,14 +34,25 @@ Phases, one line each before the last:
      (the seed scan's tile and all 500,000 sample columns at 8,192
      queries, flat f32 over 1M columns, an IVF step of 8,192 rows of 800
      and 131,072 such rows, the kNN merge, K2's bin top-k, the IVF probe
-     choice, the IVF exactness gates' k = n = 2,000 and 6,324 on the
-     block queue) and on
+     choice, and on the wide route the probe choice at nprobe 300 and the
+     IVF exactness gates' k = n = 2,000, 6,324 and 14,142, and k = 14,142
+     of 20,000) and on
      adversarial rows (the int8 scans' s32 scores as f32, heavy
      ties, mixed +-0.0, rows of +inf, NaNs, strided and copied views, a
      few very long rows, rows shorter than a warp, n == k) at k = 1, 10,
-     32, 40, 64, 128, 256 (the warp queue) and 257, 600, 2,000, 8,192
-     (the block queue); int32 scores and k > 8,192 raise; times of the
+     32, 40, 64, 128, 256 (the warp queue) and 257, 600, 2,000, 8,192,
+     8,193, 14,142 (the wide route); int32 scores raise; times of the
      kernel, its plain version and torch.topk, with the bound and share;
+  4c. k3f_select: the fused score kernel against score_topk_ref on the
+     card under score_select.check_tolerance, at the paths' shapes (the
+     seed scan, 8,192 x 500,000 x 128, k 48; flat bf16, 8,192 x 1M x 128,
+     k 20; a fused-build batch, 8,192 x 250,000 x 128, k 16; a batch of
+     256; one query), ip and l2, and bit for bit on dyadic operands
+     (tables of 1, 50 and 127 rows among them); times of the kernel, its
+     plain version, the unfused route (the tiled f32 matmul + K3) and the
+     fastest library composite (a bf16 torch.matmul, then torch.topk: no
+     single PyTorch call computes the function), with the bound
+     (operations) and share;
   5. main path on the bench's synthetic T2I world: exact kNN (train kNN and
      ground truth), build_roargraph (classic engine), save/load,
      Searcher.search at L = 64, 100, 200; checks on the graph, on recall and
@@ -57,9 +68,15 @@ Phases, one line each before the last:
      the bench's ten (expand, seeds, L) rows, then the classic Searcher on
      the same graph at L=100 (the bench's parity row); one row must reach
      recall@10 >= 0.95;
-  8a. k3_seed_tile: a score tile captured from the fused serving path's own
-     seed scan at (4, 40, 48), K3 against its plain version on it, bit for
-     bit, with both times; a profiler split of one seeded batch;
+  7b. fused_build_seeded: the fused build recipe with phase-D seeds (16
+     from a 1-in-4 sample, as scripts/torch_probe_build_1m.py's
+     --build_seeds runs it) on the first 200,000 base rows and 40,000 train
+     queries, one pass: the graph checks and K3f's launches;
+  8a. seed_scan_k3f: the fused serving path's own seed scan at (4, 40, 48)
+     (8,192 eval queries over the 1-in-2 sample of the 1M base) through
+     K3f against its plain version under the tolerance, with both times;
+     the same bits for a query alone and in the batch, and on a second
+     run; a profiler split of one seeded batch;
   8b. bench_twin: bench_torch.py's own row functions (those its main
      calls) on the same base, eval queries and ground truth and on the
      phase-7 graph, one discarded trial and one timed (no build): flat f32
@@ -140,7 +157,8 @@ Phases, one line each before the last:
      regenerated rows, an exactness gate at nprobe = n_clusters.
 K3's launches are counted over the main path's phases (the exact kNN of
 phases 5 and 15, flat serving, the fused build and serving, the IVF
-sweeps), each of which must launch it. Then a JSON line with the kernels'
+sweeps), each of which must launch it; K3f's over flat bf16, the seeded
+fused build and fused serving, each of which must launch it. Then a JSON line with the kernels'
 records, and last a JSON line with the device. Any failed check exits
 non-zero before the last line is printed.
 """
@@ -227,14 +245,17 @@ WORLD_REDUCED = ("10M of the script's 50M rows; 4,096 of its 16,384 queries; "
 WORLD_ROW_ATOL = 2e-6     # rows across batch shapes / devices (unit norm)
 SELECT_SOURCE = "mysteryann_tpu_torch/csrc/select.cu"
 SELECT_REPLACES = "mysteryann_tpu/search/seeding.py:54"
+SCORE_SOURCE = "mysteryann_tpu_torch/csrc/score_select.cu"
+SCORE_REPLACES = "mysteryann_tpu/search/seeding.py:45"
 # (name, rows, n, k, reps, trials) of K3's timed shapes: the seed scan's
 # tile (n as _tiled_topk cuts it) and all 500,000 sample columns of the 1M
 # world at 8,192 queries, flat f32 over the 1M base, an IVF step of the
 # grouped scan ([C·qmax, cap] = [8,192, 800]: C = 8,192 // qmax) and 16
 # steps' rows in one call, the kNN's [B, k + k] merge, K2's bin top-k, the
 # IVF probe choice over 2,000 centroids; on the wide route (k > 256) the
-# exactness gates' selection of every cluster (k = n = 2,000 at 1M, 1,024
-# queries; 6,324 at 10M, 256 queries)
+# probe choice at nprobe 300 and the exactness gates' selection of every
+# cluster (k = n = 2,000 at 1M, 1,024 queries; 6,324 at 10M, 256 queries;
+# 14,142 at 50M, 64 queries) and k = 14,142 of 20,000
 K3_SHAPES = (("seed_scan_tile", 8192, None, 48, 5, 5),
              ("seed_scan_full", 8192, 500_000, 48, 3, 3),
              ("flat_f32_full", 8192, 1_000_000, 20, 3, 3),
@@ -243,14 +264,36 @@ K3_SHAPES = (("seed_scan_tile", 8192, None, 48, 5, 5),
              ("knn_merge", 8192, 128, 64, 20, 7),
              ("scan_bins", 8192, 4096, 20, 20, 7),
              ("ivf_topc", 8192, 2000, 64, 20, 7),
+             ("wide_topc_300", 8192, 2000, 300, 10, 5),
              ("wide_gate_1m", 1024, 2000, 2000, 10, 5),
-             ("wide_gate_10m", 256, 6324, 6324, 10, 5))
+             ("wide_gate_10m", 256, 6324, 6324, 10, 5),
+             ("wide_gate_50m", 64, 14142, 14142, 10, 5),
+             ("wide_k14142", 64, 20_000, 14142, 10, 5))
 K3_LONG_ROW = 1_000_000     # the few-rows case: a block of warps a row
-# every queue width and its edges, the warp's and the block's
-K3_KS = (1, 10, 32, 40, 64, 128, 256, 257, 600, 2000, 8192)
+# every queue width and its edges, the warp's, and the wide route's sorts
+# in shared memory and through global scratch
+K3_KS = (1, 10, 32, 40, 64, 128, 256, 257, 600, 2000, 8192, 8193, 14142)
 # K3's launches in the paths' own runs, by phase: the builds' exact kNN
 # (main_path, large_knn), flat serving, the fused build and serving, IVF
 K3_LAUNCHES: dict = {}
+# (name, queries, table rows, d, k, reps, trials) of K3f's shapes: the seed
+# scan of an 8,192-query batch over the 1M world's 1-in-2 sample, flat bf16
+# over the 1M base (k = 10 x oversample 2), a fused-build phase-D batch of
+# 8,192 nodes seeding 16 from a 1-in-4 sample, a small batch of 256, one
+# query
+K3F_SHAPES = (("seed_scan", 8192, 500_000, DIM, 48, 3, 3),
+              ("flat_bf16", 8192, 1_000_000, DIM, 20, 3, 3),
+              ("build_batch", 8192, 250_000, DIM, 16, 3, 3),
+              ("small_batch", 256, 250_000, DIM, 16, 10, 5),
+              ("one_query", 1, 500_000, DIM, 48, 20, 7))
+# K3f's launches by phase: flat bf16, the seeded fused build, fused serving;
+# and the calls of those phases that took score_topk's unfused route
+K3F_LAUNCHES: dict = {}
+K3F_UNFUSED: dict = {}
+# the seeded fused build: the bench recipe with phase-D seeds, on a slice
+SEEDED_BUILD = dict(FUSED_BUILD, connectivity_passes=1, connectivity_seeds=16,
+                    connectivity_seed_sample=4)
+SEEDED_BUILD_N, SEEDED_BUILD_TRAIN = 200_000, 40_000
 
 
 def fail(msg: str) -> None:
@@ -422,25 +465,43 @@ def is_k1_kernel(name: str) -> bool:
 def is_k3_kernel(name: str) -> bool:
     """Whether a profiler kernel name is one of K3's (csrc/select.cu keeps
     every kernel in namespace msann_k3)."""
-    return "msann_k3" in name
+    return "msann_k3::" in name
+
+
+def is_k3f_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is K3f's (csrc/score_select.cu keeps
+    its kernels in namespace msann_k3f)."""
+    return "msann_k3f::" in name
 
 
 def device_split(fn, top: int = 8) -> dict:
     """Device time of one call of ``fn`` from a torch.profiler trace: the
     wall time (profiled), the kernels' summed time, their busy share of
-    the first-to-last kernel span, K1's and K3's ms, and the ``top``
-    kernels by time."""
-    from torch.profiler import ProfilerActivity, profile
+    the first-to-last kernel span, K1's, K3's and K3f's ms, and the ``top``
+    kernels by time. ``fn`` runs twice in the trace and only the second
+    call's kernels count (those that start after its host range does): a
+    profiler started again in one process can miss the first kernels of
+    its window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        t0 = time.perf_counter()
+        with record_function("device_split.measured"):
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "device_split.measured")
+    # the range shows on the device's timeline too: not a kernel
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.start >= start
+               and e.name != "device_split.measured"]
     out = {"wall_ms_profiled": wall * 1e3, "kernels_seen": len(kernels)}
     if not kernels:
         return out                # the profiler recorded no device activity
@@ -452,10 +513,11 @@ def device_split(fn, top: int = 8) -> dict:
             - min(e.time_range.start for e in kernels))
     k1 = sum(v for k, v in by_name.items() if is_k1_kernel(k))
     k3 = sum(v for k, v in by_name.items() if is_k3_kernel(k))
+    k3f = sum(v for k, v in by_name.items() if is_k3f_kernel(k))
     out.update(device_ms=busy / 1e3, busy_share=busy / max(1, span),
-               k1_ms=k1 / 1e3, k3_ms=k3 / 1e3,
-               top={k[:60]: v / 1e3 for k, v in sorted(
-                   by_name.items(), key=lambda kv: -kv[1])[:top]})
+               k1_ms=k1 / 1e3, k3_ms=k3 / 1e3, k3f_ms=k3f / 1e3,
+               top=[[k[:60], v / 1e3] for k, v in sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:top]])
     return out
 
 
@@ -909,17 +971,13 @@ def kernel_select(select, dev) -> dict:
     for k in K3_KS:                         # n == k
         k3_same(select, ties(1000, k, lim=2), k, f"n_equals_k_{k}")
         cases += 1
-    # what the kernel does not take raises: int32 scores, k past the block
-    # queue
-    for bad, k, err in ((s32, 10, TypeError),
-                        (s32.float(), select.MAX_WIDE_K + 1, ValueError)):
-        try:
-            topk_smallest(bad, k)
-        except err:
-            cases += 1
-        else:
-            fail(f"K3 took {bad.dtype} k={k} instead of raising "
-                 f"{err.__name__}")
+    # what the kernel does not take raises: int32 scores
+    try:
+        topk_smallest(s32, 10)
+    except TypeError:
+        cases += 1
+    else:
+        fail("K3 took int32 scores instead of raising TypeError")
     del adversarial, zeros, infs, nans, q8, b8, s32, wide
     torch.cuda.empty_cache()
     phase("k3_select", bit_identical=True, adversarial_cases=cases,
@@ -931,43 +989,156 @@ def kernel_select(select, dev) -> dict:
             "timings": timings}
 
 
-def k3_seed_tile(port, select, world: dict, index,
-                 query_batch: int = 8192) -> dict:
-    """Phase 8a: a score tile captured from the fused serving path's own
-    seed scan (one seeded batch at (4, 40, 48)), K3 against its plain
-    version on it, bit for bit, with both times; then a profiler split of
-    one such batch. Outside every path's count."""
-    from mysteryann_tpu_torch.ops import knn
+def k3f_bound(B: int, n: int, d: int, k: int) -> tuple:
+    """(bound ms, "operations" or "bytes") of K3f: 2·B·n·d flops at
+    BF16_FLOP_S against the bf16 operands read once and k f32 values and
+    int64 ids written a query at HBM_BYTES_S."""
+    ops = 2.0 * B * n * d / BF16_FLOP_S * 1e3
+    io = ((B + n) * d * 2 + B * k * 12) / HBM_BYTES_S * 1e3
+    return (ops, "operations") if ops >= io else (io, "bytes")
 
+
+def k3f_library(q: torch.Tensor, t: torch.Tensor, k: int):
+    """The fastest two-call library composite of K3f's function (ip): a
+    bf16 torch.matmul (bf16 scores), then torch.topk of the largest."""
+    return torch.topk(q @ t.t(), k, dim=-1)
+
+
+def k3f_check(score_select, q, t, k, metric, q_sq, t_sq, tag) -> dict:
+    """K3f against its plain version under check_tolerance; fails with the
+    helper's reason. Returns the helper's report."""
+    before = score_select.launches
+    got = score_select.score_topk(q, t, k, metric, q_sq, t_sq)
+    check(score_select.launches == before + 1,
+          f"K3f {tag}: the call did not launch the kernel")
+    want = score_select.score_topk_ref(q, t, k, metric, q_sq, t_sq)
+    torch.cuda.synchronize()
+    r = score_select.check_tolerance(q, t, metric, got, want, q_sq, t_sq)
+    check(r["ok"], f"K3f outside its tolerance on {tag} "
+                   f"{list(q.shape)} x {list(t.shape)} k={k} {metric}: {r}")
+    return r
+
+
+def kernel_score_select(score_select, dev) -> dict:
+    """Phase 4c: K3f against its plain version on the card under the
+    tolerance at the paths' shapes (ip; the seed scan's also l2), bit for
+    bit on dyadic operands, and timed beside its plain version, the
+    library composite and the unfused route (the tiled f32 matmul selected
+    by K3, what those paths ran before K3f). The launches made here are
+    outside every path's count."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    timings, errs = {}, []
+    for name, B, n, d, k, reps, trials in K3F_SHAPES:
+        q = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+        t = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+        r = k3f_check(score_select, q, t, k, "ip", None, None, name)
+        errs.append(r["max_abs_err"])
+        if name == "seed_scan":
+            qf, tf = q.float(), t.float()
+            r2 = k3f_check(score_select, q, t, k, "l2", (qf * qf).sum(1),
+                           (tf * tf).sum(1), name + "_l2")
+            errs.append(r2["max_abs_err"])
+            del qf, tf
+        bound, by = k3f_bound(B, n, d, k)
+        tm = {"B": B, "n": n, "d": d, "k": k,
+              "plan": score_select.plan_for(q, t, k)._asdict(),
+              "ids_differ": r["ids_differ"],
+              "max_err_over_eps": r["max_err_over_eps"],
+              "kernel_ms": time_ms(lambda: score_select.score_topk(
+                  q, t, k, "ip"), reps, trials),
+              "plain_ms": time_ms(lambda: score_select.score_topk_ref(
+                  q, t, k, "ip"), 1, 3),
+              "library_ms": time_ms(lambda: k3f_library(q, t, k), reps,
+                                    trials),
+              "unfused_ms": time_ms(lambda: score_select._tiled(
+                  q, t, k, score_select.Metric.IP, None, None, None,
+                  score_select.topk_smallest), reps, trials),
+              "bound_ms": bound, "bound_by": by}
+        tm["share"] = bound / tm["kernel_ms"]
+        timings[name] = tm
+        del q, t
+        torch.cuda.empty_cache()
+    # dyadic operands: every sum exact, so the kernel's bits are the plain
+    # version's, ties included; the last four: tables under a step (128
+    # rows), batches under a tile, d under a box
+    dyadic = 0
+    for B, n, d, k, metric in ((8192, 100_003, 128, 48, "ip"),
+                               (1000, 30_011, 100, 20, "l2"),
+                               (40, 5000, 32, 256, "cosine"),
+                               (1, 20_000, 128, 48, "ip"),
+                               (3, 1, 128, 1, "ip"), (40, 50, 32, 48, "l2"),
+                               (1, 127, 100, 100, "cosine"),
+                               (130, 127, 16, 127, "ip")):
+        q = (torch.randint(-8, 9, (B, d), generator=g, device=dev) / 8)
+        t = (torch.randint(-8, 9, (n, d), generator=g, device=dev) / 8)
+        q_sq = t_sq = None
+        if metric == "l2":
+            q_sq, t_sq = (q * q).sum(1), (t * t).sum(1)
+        qb, tb = q.to(torch.bfloat16), t.to(torch.bfloat16)
+        got = score_select.score_topk(qb, tb, k, metric, q_sq, t_sq)
+        want = score_select.score_topk_ref(qb, tb, k, metric, q_sq, t_sq)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"K3f differs from its plain version on dyadic {B} x {n} x "
+              f"{d} k={k} {metric}")
+        dyadic += 1
+    del q, t, qb, tb
+    torch.cuda.empty_cache()
+    phase("k3f_select", within_tolerance=True, dyadic_bit_identical=dyadic,
+          timings=timings)
+    t = timings["seed_scan"]
+    return {"max_abs_err": max(errs), "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "timings": timings}
+
+
+def seed_scan_k3f(port, score_select, world: dict, index,
+                  query_batch: int = 8192) -> dict:
+    """Phase 8a: the fused serving path's own seed scan (the 1-in-2 sample
+    of the 1M base, 8,192 eval queries, 40 seeds as the (4, 40, 48) row
+    takes them) through K3f against its plain version under the
+    tolerance, with both times; the same bits for a query alone and in the
+    batch, and on a second run; then a profiler split of one seeded batch
+    at (4, 40, 48). Outside every path's count."""
     fs = port.FusedSearcher(index, world["base_dev"],
                             max_degree=SEED_MAX_DEGREE,
                             seed_sample=SEED_SAMPLE, bits=8)
-    q = world["eval_q"][:query_batch]
-    captured = []
-    select_fn = knn.topk_smallest
-
-    def capture(x, k):
-        if not captured and x.shape[-1] > 4 * k:   # a score tile, no merge
-            captured.append((x.clone(), k))
-        return select_fn(x, k)
-
-    knn.topk_smallest = capture
-    try:
-        fs.search(q, k=K, L=48, query_batch=query_batch, expand=4, seeds=40)
-    finally:
-        knn.topk_smallest = select_fn
-    check(bool(captured), "the seeded search selected no score tile")
-    tile, k = captured[0]
-    k3_same(select, tile, k, "the fused serving seed-scan tile")
-    t = k3_timings(select, tile, k, 5, 5)
-    del captured, tile
+    samp, samp_sq, _ = fs._samp
+    q = port.prepare_vectors(world["eval_q"][:query_batch], METRIC,
+                             world["base_dev"].device)
+    qb = q.to(torch.bfloat16)
+    k = 40
+    r = k3f_check(score_select, qb, samp, k, METRIC, None, None,
+                  "the fused serving seed scan")
+    first = score_select.score_topk(qb, samp, k, METRIC)
+    again = score_select.score_topk(qb, samp, k, METRIC)
+    same = bool(torch.equal(first[0], again[0])
+                and torch.equal(first[1], again[1]))
+    for row in (0, query_batch // 2 + 1, query_batch - 1):
+        one = score_select.score_topk(qb[row:row + 1], samp, k, METRIC)
+        same = same and bool(torch.equal(one[0], first[0][row:row + 1])
+                             and torch.equal(one[1], first[1][row:row + 1]))
+    check(same, "K3f's seed scan differs between runs, or between a query "
+                "alone and in the batch")
+    bound, by = k3f_bound(qb.shape[0], samp.shape[0], samp.shape[1], k)
+    t = {"B": qb.shape[0], "n": samp.shape[0], "k": k,
+         "ids_differ": r["ids_differ"], "max_abs_err": r["max_abs_err"],
+         "kernel_ms": time_ms(lambda: score_select.score_topk(
+             qb, samp, k, METRIC), 3, 3),
+         "plain_ms": time_ms(lambda: score_select.score_topk_ref(
+             qb, samp, k, METRIC), 1, 3),
+         "bound_ms": bound, "bound_by": by}
+    t["share"] = bound / t["kernel_ms"]
+    del first, again
     split = device_split(lambda: fs.search(
         q, k=K, L=48, query_batch=query_batch, expand=4, seeds=40,
         device_out=True), top=12)
-    del fs
+    del fs, samp, samp_sq
     torch.cuda.empty_cache()
-    phase("k3_seed_tile", bit_identical=True, timings=t,
-          seeded_batch_split=split, queries=query_batch,
+    phase("seed_scan_k3f", within_tolerance=True, same_bits_alone_and_again=same,
+          timings=t, seeded_batch_split=split, queries=query_batch,
           row=[4, 40, 48])
     return t
 
@@ -1010,11 +1181,11 @@ def scan_batch_split(idx, q: torch.Tensor) -> dict:
 def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
               ) -> dict:
     """Phase 6: FlatIndex in four precisions on the main path's world."""
-    from mysteryann_tpu_torch.ops import select
+    from mysteryann_tpu_torch.ops import score_select, select
 
     base_dev, eval_q = world["base_dev"], world["eval_q"]
     n = base_dev.shape[0]
-    k1 = k2 = k3 = 0
+    k1 = k2 = k3 = k3f = k3f_unfused = 0
     for prec in ("f32", "bf16", "int8", "scan"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1025,8 +1196,11 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
         gather.reset_launches()
         scan.reset_launches()
         select.reset_launches()
+        score_select.reset_launches()
         r = idx.benchmark(eval_q, k=K, query_batch=query_batch)
         l1, l2, l3 = gather.launches, scan.launches, select.launches
+        l3f = score_select.launches
+        unfused = score_select.unfused_launches
         split = (scan_batch_split(idx, port.prepare_vectors(
             eval_q[:query_batch], METRIC, base_dev.device))
             if prec == "scan" else None)
@@ -1040,7 +1214,8 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
                "rderr": port.compute_rderr(r["dists"], world["gt_d"], K,
                                            METRIC),
                "build_s": t_build, "k1_launches": l1, "k2_launches": l2,
-               "k3_launches": l3,
+               "k3_launches": l3, "k3f_launches": l3f,
+               "k3f_unfused_launches": unfused,
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if split is not None:
             row["batch_split"] = split
@@ -1053,10 +1228,18 @@ def flat_path(port, gather, scan, world: dict, query_batch: int = 8192
         if prec == "scan":
             check(l2 > 0, "flat scan launched the scan kernel 0 times")
         check(l3 > 0, f"flat {prec} launched K3 0 times")
+        check((l3f > 0) == (prec == "bf16"),
+              f"flat {prec} launched K3f {l3f} times")
+        check(unfused == 0, f"flat {prec}: {unfused} bf16 calls took the "
+                            f"unfused route")
         k1 += l1
         k2 += l2
         k3 += l3
+        k3f += l3f
+        k3f_unfused += unfused
     K3_LAUNCHES["flat"] = k3
+    K3F_LAUNCHES["flat"] = k3f
+    K3F_UNFUSED["flat"] = k3f_unfused
     flag = gather.error_flag_value()
     check(flag == 0, "the gather kernel met an out-of-range index (flat)")
     return {"k1_launches": k1, "k2_launches": k2}
@@ -1066,7 +1249,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
     """Phases 7-8: the bench's fused build recipe, then seeded FusedSearcher
     serving over the bench's sweep and the classic parity row."""
     from mysteryann_tpu_torch.graph.roargraph import _resolve_engine
-    from mysteryann_tpu_torch.ops import select
+    from mysteryann_tpu_torch.ops import score_select, select
     from mysteryann_tpu_torch.utils.trace import tracer
 
     base_dev, eval_q = world["base_dev"], world["eval_q"]
@@ -1110,6 +1293,7 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
                             seed_sample=SEED_SAMPLE, bits=8)
     gather.reset_launches()
     select.reset_launches()
+    score_select.reset_launches()
     rows = []
     for expand, seeds, L in SEEDED_L_SWEEP:
         r = fs.benchmark(eval_q, k=K, L=L, query_batch=query_batch,
@@ -1126,18 +1310,26 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
         phase("fused_serve", **row)
     serve_launches = gather.launches
     k3_serve = select.launches
+    k3f_serve = score_select.launches
     K3_LAUNCHES["fused"] = k3_build + k3_serve
+    K3F_LAUNCHES["fused"] = k3f_serve
+    K3F_UNFUSED["fused"] = score_select.unfused_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     del fs
     torch.cuda.empty_cache()
     best = max(r["recall@10"] for r in rows)
     at_target = [r for r in rows if r["recall@10"] >= TARGET_RECALL]
     phase("fused_serve_summary", k1_launches=serve_launches,
-          k3_launches=k3_serve, best_recall=best, peak_gib=peak,
+          k3_launches=k3_serve, k3f_launches=k3f_serve,
+          k3f_unfused_launches=K3F_UNFUSED["fused"], best_recall=best,
+          peak_gib=peak,
           best_qps_at_target=max((r["qps"] for r in at_target),
                                  default=None))
     check(serve_launches > 0, "fused serving launched K1 0 times")
-    check(k3_serve > 0, "fused serving launched K3 0 times")
+    # the seed selection is K3f's now; K3 merges its column shares
+    check(k3f_serve > 0, "fused serving launched K3f 0 times")
+    check(K3F_UNFUSED["fused"] == 0,
+          "fused serving: a seed scan took the unfused route")
     check(bool(at_target), f"no fused row reached recall@10 >= "
                            f"{TARGET_RECALL} (best {best:.4f})")
 
@@ -1151,6 +1343,48 @@ def fused_path(port, gather, world: dict, query_batch: int = 8192) -> dict:
           "the gather kernel met an out-of-range index (fused serving)")
     return {"index": index, "k1_launches": build_launches + serve_launches,
             "rows": rows, "build_s": t_build}
+
+
+def seeded_build_path(port, gather, world: dict) -> dict:
+    """Phase 7b: the fused build with phase-D seeds (SEEDED_BUILD: the
+    bench recipe, one pass, 16 seeds from a 1-in-4 sample, as
+    scripts/torch_probe_build_1m.py --build_seeds runs it) on the first
+    SEEDED_BUILD_N base rows and SEEDED_BUILD_TRAIN train queries; their
+    kNN by the port's exact kNN, outside the counts. The graph checks and
+    K3f's launches in the build."""
+    from mysteryann_tpu_torch.ops import score_select
+
+    base = world["base_dev"][:SEEDED_BUILD_N]
+    train = world["train_q"][:SEEDED_BUILD_TRAIN]
+    _, knn = port.exact_knn(train, base, k=SEEDED_BUILD["M_sq"],
+                            metric=METRIC, query_batch=8192)
+    cfg = port.BuildConfig(**SEEDED_BUILD)
+    gather.reset_launches()
+    score_select.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = port.build_roargraph(base, train, knn, cfg, verbose=False)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    l3f = score_select.launches
+    K3F_LAUNCHES["fused_build"] = l3f
+    K3F_UNFUSED["fused_build"] = score_select.unfused_launches
+    st = index.graph.degree_stats()
+    reach = reachable_all(index.graph.neighbors, index.graph.ep)
+    phase("fused_build_seeded", n=SEEDED_BUILD_N, n_train=SEEDED_BUILD_TRAIN,
+          seeds=SEEDED_BUILD["connectivity_seeds"],
+          seed_sample=SEEDED_BUILD["connectivity_seed_sample"],
+          passes=SEEDED_BUILD["connectivity_passes"], seconds=t_build,
+          degree=st, all_reachable=reach, k1_launches=gather.launches,
+          k3f_launches=l3f,
+          k3f_unfused_launches=K3F_UNFUSED["fused_build"])
+    check(l3f > 0, "the seeded fused build launched K3f 0 times")
+    check(K3F_UNFUSED["fused_build"] == 0,
+          "the seeded fused build: a seed scan took the unfused route")
+    check(st["zero"] == 0, f"seeded build: {st['zero']} zero-degree nodes")
+    check(reach, "seeded build: not every node is reachable")
+    index.graph.validate()
+    return {"k1_launches": gather.launches}
 
 
 def bench_twin_path(gather, world: dict, fused: dict) -> int:
@@ -2443,7 +2677,7 @@ def main() -> None:
              "CUDA device and has no CPU fallback")
     t_start = time.perf_counter()
     port = import_port()
-    from mysteryann_tpu_torch.ops import gather, scan, select
+    from mysteryann_tpu_torch.ops import gather, scan, score_select, select
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2457,12 +2691,12 @@ def main() -> None:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     # one nvcc per source, all started together
-    kernels = (gather, scan, select)
+    kernels = (gather, scan, select, score_select)
     with ThreadPoolExecutor(len(kernels)) as ex:
         futures = [ex.submit(m.build, True) for m in kernels]
         secs = [f.result() for f in futures]
     for m, src, sec in zip(kernels, (KERNEL_SOURCE, SCAN_SOURCE,
-                                     SELECT_SOURCE), secs):
+                                     SELECT_SOURCE, SCORE_SOURCE), secs):
         phase("build_kernel", source=src, seconds=sec,
               ptxas=[ln.strip() for ln in m.build_log.splitlines()
                      if "registers" in ln or "spill" in ln])
@@ -2471,10 +2705,12 @@ def main() -> None:
     kernel_fused_rows(gather, dev)
     k2 = kernel_scan(scan, dev)
     k3 = kernel_select(select, dev)
+    k3f = kernel_score_select(score_select, dev)
     run = main_path(port, gather, dev, 1_000_000, 200_000, 8192)
     flat = flat_path(port, gather, scan, run)
     fused = fused_path(port, gather, run)
-    k3_seed_tile(port, select, run, fused["index"])
+    k1_seeded = seeded_build_path(port, gather, run)["k1_launches"]
+    seed_scan_k3f(port, score_select, run, fused["index"])
     run["fused_neighbors"] = fused["index"].graph.neighbors
     run["fused_ep"] = fused["index"].graph.ep
     k1_twin = bench_twin_path(gather, run, fused)
@@ -2495,13 +2731,19 @@ def main() -> None:
     check(all(K3_LAUNCHES.get(p, 0) > 0 for p in
               ("main_path", "flat", "fused", "ivf", "large_knn")),
           f"a main-path phase launched K3 0 times: {K3_LAUNCHES}")
+    phase("k3f_launches", **K3F_LAUNCHES,
+          unfused=dict(K3F_UNFUSED))
+    check(all(K3F_LAUNCHES.get(p, 0) > 0 for p in
+              ("flat", "fused_build", "fused")),
+          f"a main-path phase launched K3f 0 times: {K3F_LAUNCHES}")
     phase("smoke", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({"kernels": [
         {"name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": KERNEL_REPLACES,
          "launches": (run_launches + flat["k1_launches"]
-                      + fused_launches + k1_twin + k1_probe + k1_bip
+                      + fused_launches + k1_seeded + k1_twin + k1_probe
+                      + k1_bip
                       + ivf["k1_launches"]
                       + k1_par + k1_cli + k1_large + k1_world),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
@@ -2517,7 +2759,15 @@ def main() -> None:
          "launches": sum(K3_LAUNCHES.values()),
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]}]}),
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+        {"name": "score_select", "route": "cuda", "source": SCORE_SOURCE,
+         "replaces": SCORE_REPLACES,
+         "launches": sum(K3F_LAUNCHES.values()),
+         "max_abs_err": k3f["max_abs_err"], "ms": k3f["ms"],
+         "plain_ms": k3f["plain_ms"], "bound_ms": k3f["bound_ms"],
+         "bound_by": k3f["bound_by"], "library_ms": k3f["library_ms"],
+         "library": "a bf16 torch.matmul, then torch.topk: no single "
+                    "PyTorch call computes the function"}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

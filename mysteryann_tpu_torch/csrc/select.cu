@@ -5,30 +5,26 @@
 // Replaces the TPU's partial-reduce selection, which the JAX package reaches
 // through jax.lax.approx_min_k (mysteryann_tpu/search/seeding.py:54;
 // ops/knn.py:76, :228, :240, :309, :322; ops/scan.py:152) and the exact
-// jax.lax.top_k (ops/knn.py:36, :78; flat.py:53): the seed scan's score
-// tiles, the exact and int8 kNN tiles and their running merges, the flat
-// index's rerank, the binned scan's bin top-k, and the IVF index's probe
-// choice, per-chunk selection, merge and rerank. ops/sort.py::topk_smallest
-// routes every CUDA call here (ops/select.py): k <= 256 to the warp queue,
-// 256 < k <= 8192 to the block queue (the IVF exactness gates select all
-// 2,000 or 6,324 clusters).
+// jax.lax.top_k (ops/knn.py:36, :78; flat.py:53; ivf.py:58, :131, :201,
+// :219, :231, :249): the exact and int8 kNN tiles and their running
+// merges, the flat index's rerank, the binned scan's bin top-k, the IVF
+// index's probe choice, per-chunk selection, merge and rerank, and the
+// merge of the fused score kernel's (score_select.cu) partial results.
+// ops/sort.py::topk_smallest routes every CUDA call here (ops/select.py):
+// k <= 256 to the warp queue, any larger k to the wide route.
 //
-// Order. Each element becomes one unique 64-bit key, formed in registers:
-// the high word is the order-preserving image of the value (float: -0.0
-// first turned into +0.0 by adding +0.0, then the sign-magnitude bits
-// mapped to two's complement), biased to unsigned; the
-// low word is the column. The k smallest keys, ascending, are exactly what
-// the plain version (ops/sort.py::topk_smallest_ref, an int64 composite key
-// fed to torch.topk) selects, on any input: selection adds no arithmetic.
-// The values written are the row's own bits at the chosen columns, so a
-// -0.0 keeps its sign.
+// Order: the composite (order image, column) key of k3_queue.cuh, formed in
+// registers. The k smallest keys, ascending, are exactly what the plain
+// version selects, on any input: selection adds no arithmetic. The values
+// written are the row's own bits at the chosen columns, so a -0.0 keeps its
+// sign.
 //
 // What bounds it on the card: bytes. Every element is read once from HBM
 // (rows x n x 4 bytes) and k values and indices are written per row; at
 // 3.35 TB/s that is the least time a call takes, and the work per element
 // must stay a few instructions to keep up.
 //
-// Design (Faiss's WarpSelect / BlockSelect, arXiv 1702.08734). A warp owns
+// Warp route (k <= 256; Faiss's WarpSelect, arXiv 1702.08734). A warp owns
 // a row, or W warps of one block share a long row when rows are few. Each
 // lane issues kUnroll coalesced loads (a warp reads 32 consecutive
 // elements per load) before it looks at any, forms the keys and compares
@@ -36,30 +32,37 @@
 // elements cost that one compare and one warp vote. A key below it is
 // appended to the warp's candidate buffer in shared memory (one ballot,
 // one popc for the slot). The queue holds the N = 32 x KPL best keys,
-// sorted ascending across the warp's registers (element r x 32 + lane in
-// register r of that lane); the share's first N columns fill it directly,
-// so the threshold holds from the first step. After a step of 32 x kUnroll
-// columns, once more than N keys wait, the warp merges them into the
-// queue: N buffered keys at a time are bitonic-sorted across the
-// warp (shuffles for strides below 32, register swaps above), reversed
-// against the queue, the smaller of each pair kept (a bitonic sequence
-// holding the N smallest of both), and one bitonic merge sorts it again;
-// the threshold is then the key at k - 1. The merge has one call site, so
-// the unrolled networks are compiled once per queue width. With W warps a
-// row, each warp scans an interleaved share of the columns and the first
-// warp merges the others' sorted queues from shared memory.
+// sorted ascending across the warp's registers; the share's first N
+// columns fill it directly, so the threshold holds from the first step.
+// After a step of 32 x kUnroll columns, once more than N keys wait, the
+// warp merges them into the queue (k3_queue.cuh's flush); the threshold is
+// then the key at k - 1. The merge has one call site, so the unrolled
+// networks are compiled once per queue width. With W warps a row, each
+// warp scans an interleaved share of the columns and the first warp merges
+// the others' sorted queues from shared memory.
 //
-// For 256 < k <= 8192 (the wide route) the queue moves to shared memory
-// (BlockSelect's queue, block-wide): one block of 256 threads a row, a
-// queue of Q >= k keys (a power of two, 512..8192) sorted ascending and a
-// candidate buffer of B = max(Q, 2 x 1024) keys. Each step of 1,024
-// columns appends the keys below the threshold to the buffer (one shared
-// atomic each); once the buffer could not take another step, or at the
-// row's end, the block bitonic-sorts the buffer's filled power of two,
-// keeps the smaller of the queue and the reversed buffer (a bitonic
-// sequence holding the Q smallest of both) and merges it, with a barrier
-// after every stage. When k is close to n, as at the exactness gates, this
-// is one sort of the whole row.
+// Wide route (k > 256; any k <= n): select, then sort only k keys. One
+// block of 256 threads a row. The row is copied to shared memory once when
+// it fits beside the sort buffer (else every pass reads it from HBM).
+// (1) A radix select finds the k-th smallest composite key, 8 bits a pass
+// from the top: a histogram of the keys that match the digits found so far
+// (shared atomics, one per group of lanes with the same bin, found with
+// __match_any_sync) and a block scan that finds the bin holding the k-th.
+// A pass ends the search when the k-th is the last key of its bin; the
+// column's bits are searched only past the value's, and only as many as n
+// needs. k = n skips it. (2) One pass collects the k keys at or below it
+// (unique keys: exactly k; one shared atomic a warp). (3) The k keys,
+// padded to a power of two L >= 512 with kNoKey, are sorted: each warp
+// sorts 256-key segments in registers (k3_queue.cuh's warp_sort), then
+// bitonic merges of sorted runs, stages with strides of 256 and more in
+// shared memory with a barrier each, the rest in registers. For L > 8192
+// the keys are collected in global scratch, sorted in chunks of 8,192 in
+// shared memory by a second kernel, and the sorted runs merged pairwise
+// through global memory (each key's place is its rank in its run plus its
+// rank in the partner run, by binary search); a last kernel writes the
+// first k. The old design (a block queue that sorted a 2,048-key buffer
+// per flush, 66 barriered stages a row) was sort-bound at 3-7% of the
+// byte bound.
 //
 // Rows are read with a row stride, so a column slice of a wider block or
 // the rows of a [C, qmax, cap] view need no copy. Every kernel lives in
@@ -68,17 +71,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "k3_queue.cuh"
+
 namespace msann_k3 {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kNoKey = ~0ull;   // above every real key
 constexpr int kUnroll = 8;           // loads in flight per lane
 constexpr int kMaxThreads = 256;     // a block: 8 warps on one row at most
-constexpr int kBlockThreads = 256;   // the block queue: one block a row
-constexpr int kBlockUnroll = 4;      // its loads in flight per thread
-constexpr int kBlockStep = kBlockThreads * kBlockUnroll;
-constexpr int kMinQueue = 512;       // the block queue's narrowest
-constexpr int kMaxQueue = 8192;      // and widest (with its buffer, 128 KB)
+constexpr int kWideThreads = 256;    // the wide route: a block a row
+constexpr int kSeg = 256;            // keys a warp sorts in registers
+constexpr int kMinSort = 512;        // the wide route's narrowest sort
+constexpr int kSmemSort = 8192;      // its widest in shared memory (64 KB)
+constexpr int kWideSmem = 200 << 10; // its dynamic shared memory, at most
 
 // ---- launch arguments, as ops/select.py::_pack_args packs them ----
 enum Arg {
@@ -89,9 +92,10 @@ enum Arg {
   kK,
   kOutV,         // values [rows, k], float32
   kOutI,         // indices [rows, k] int64
-  kQueue,        // keys in the queue, >= k: the warp's 32 x 1, 2, 4 or 8,
-                 // or the block's power of two from kMinQueue to kMaxQueue
-  kBuf,          // the block queue's candidate buffer in keys; 0: the warp's
+  kQueue,        // the warp queue's keys, >= k: 32 x 1, 2, 4 or 8; or the
+                 // wide route's sort length L, a power of two >= 512
+  kCache,        // wide: 1 when the row is copied to shared memory; warp: 0
+  kScratch,      // wide, L > kSmemSort: 2 x rows x L int64 keys; else 0
   kWarpsPerRow,  // W: 1, or warps of one block sharing a row (warp queue)
   kGrid,
   kThreads,
@@ -99,114 +103,6 @@ enum Arg {
   kArgs
 };
 
-__device__ __forceinline__ uint32_t image(float v) {
-  // __fadd_rn is never contracted or folded: -0.0 + 0.0 = +0.0, and a NaN
-  // comes out as the card's canonical NaN, as torch's x + 0.0 gives it
-  const int b = __float_as_int(__fadd_rn(v, 0.0f));
-  return (uint32_t)(b < 0 ? b ^ 0x7fffffff : b) ^ 0x80000000u;
-}
-
-__device__ __forceinline__ uint64_t kmin(uint64_t a, uint64_t b) {
-  return a < b ? a : b;
-}
-
-__device__ __forceinline__ uint64_t kmax(uint64_t a, uint64_t b) {
-  return a < b ? b : a;
-}
-
-// One compare-exchange stage of a bitonic network over the warp's
-// N = 32 x KPL keys: pairs (e, e ^ stride), ascending where e & size == 0.
-template <int KPL>
-__device__ __forceinline__ void stage(uint64_t (&a)[KPL], int size,
-                                      int stride, int lane) {
-  if (stride < 32) {
-#pragma unroll
-    for (int r = 0; r < KPL; ++r) {
-      const uint64_t o = __shfl_xor_sync(kFull, a[r], stride);
-      const bool up = ((r * 32 + lane) & size) == 0;
-      const bool low = (lane & stride) == 0;
-      a[r] = (low == up) ? kmin(a[r], o) : kmax(a[r], o);
-    }
-  } else {
-    const int rs = stride / 32;
-#pragma unroll
-    for (int r = 0; r < KPL; ++r) {
-      const int p = r ^ rs;
-      if (p > r) {
-        const bool up = ((r * 32 + lane) & size) == 0;
-        const uint64_t lo = a[r], hi = a[p];
-        if (up ? lo > hi : lo < hi) {
-          a[r] = hi;
-          a[p] = lo;
-        }
-      }
-    }
-  }
-}
-
-template <int KPL>
-__device__ __forceinline__ void warp_sort(uint64_t (&a)[KPL], int lane) {
-  constexpr int N = 32 * KPL;
-#pragma unroll
-  for (int size = 2; size <= N; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1)
-      stage<KPL>(a, size, stride, lane);
-  }
-}
-
-// q and b sorted ascending: q becomes the N smallest of both, sorted.
-template <int KPL>
-__device__ __forceinline__ void merge_sorted(uint64_t (&q)[KPL],
-                                             const uint64_t (&b)[KPL],
-                                             int lane) {
-  constexpr int N = 32 * KPL;
-#pragma unroll
-  for (int r = 0; r < KPL; ++r)
-    q[r] = kmin(q[r], __shfl_sync(kFull, b[KPL - 1 - r], 31 - lane));
-#pragma unroll
-  for (int stride = N >> 1; stride > 0; stride >>= 1)
-    stage<KPL>(q, N, stride, lane);
-}
-
-// The key at position k - 1 of the queue, on every lane.
-template <int KPL>
-__device__ __forceinline__ uint64_t kth(const uint64_t (&q)[KPL], int k) {
-  uint64_t t = q[0];
-#pragma unroll
-  for (int r = 1; r < KPL; ++r)
-    if (r == (k - 1) >> 5) t = q[r];
-  return __shfl_sync(kFull, t, (k - 1) & 31);
-}
-
-// Merge the warp's `count` buffered keys into its queue, N at a time.
-template <int KPL>
-__device__ __forceinline__ void flush(uint64_t (&q)[KPL], const uint64_t* buf,
-                                      int count, int lane) {
-  constexpr int N = 32 * KPL;
-  __syncwarp();
-  for (int c0 = 0; c0 < count; c0 += N) {
-    uint64_t b[KPL];
-#pragma unroll
-    for (int r = 0; r < KPL; ++r) {
-      const int i = c0 + r * 32 + lane;
-      b[r] = i < count ? buf[i] : kNoKey;
-    }
-    warp_sort<KPL>(b, lane);
-    merge_sorted<KPL>(q, b, lane);
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ uint64_t make_key(float v, int64_t c) {
-  return ((uint64_t)image(v) << 32) | (uint32_t)c;
-}
-
-// One warp's share of a row: columns part x 32 x kUnroll on, in steps of
-// `step`. The share's first N columns fill the queue directly and one warp
-// sort orders them, so the threshold holds from the start. The buffer
-// holds N + 32 x kUnroll keys: at most N wait at the start of a step, and
-// a step appends at most 32 x kUnroll.
 template <int KPL>
 __device__ __forceinline__ void scan_row(uint64_t (&q)[KPL], uint64_t* buf,
                                          const float* __restrict__ xr,
@@ -311,103 +207,231 @@ select_kernel(const float* __restrict__ x, int64_t rows, int64_t n,
   }
 }
 
-// ---- the block queue (256 < k <= kMaxQueue): one block a row ----
 
-// Sort a[0, len) ascending, len a power of two: a bitonic network over the
-// block, a barrier after every stage.
+// ---- the wide route (k > 256): one block a row, select then sort k ----
+
+struct WideShared {
+  int hist[256];
+  int warp_sum[kWideThreads / 32];
+  int sel_bin, sel_below, sel_count;
+  int count;
+};
+
+// The bin of hist[0, nbins) holding the kk-th key (1-based), with the
+// keys below it and its own count, into s.sel_*; one bin a thread.
+__device__ void find_bin(WideShared& s, int kk, int nbins) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int h = t < nbins ? s.hist[t] : 0;
+  int inc = h;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += v;
+  }
+  if (lane == 31) s.warp_sum[warp] = inc;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) inc += s.warp_sum[w];
+  const int exc = inc - h;
+  if (h > 0 && exc < kk && kk <= inc) {
+    s.sel_bin = t;
+    s.sel_below = exc;
+    s.sel_count = h;
+  }
+  __syncthreads();
+}
+
+// The least key K such that exactly k keys of the row are <= K: the k-th
+// smallest with the bits below the digit that settled it set. Columns fit
+// in cb bits.
+__device__ uint64_t radix_kth(const float* src, int64_t n, int k, int cb,
+                              WideShared& s) {
+  const int t = threadIdx.x, lane = t & 31;
+  uint64_t prefix = 0;
+  int hi = 64, kk = k;
+  for (;;) {
+    if (hi == 32) hi = cb;     // column bits at and above cb are zero
+    const int lo = hi > 8 ? hi - 8 : 0;
+    const int nbins = 1 << (hi - lo);
+    s.hist[t] = 0;
+    __syncthreads();
+    for (int64_t c0 = t - lane; c0 < n; c0 += kWideThreads) {
+      const int64_t c = c0 + lane;
+      int bin = -1;
+      if (c < n) {
+        const uint64_t key = make_key(src[c], c);
+        if (hi >= 64 || ((key ^ prefix) >> hi) == 0)
+          bin = (int)((key >> lo) & (uint64_t)(nbins - 1));
+      }
+      const unsigned peers = __match_any_sync(kFull, bin);
+      if (bin >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&s.hist[bin], __popc(peers));
+    }
+    __syncthreads();
+    find_bin(s, kk, nbins);
+    prefix |= (uint64_t)s.sel_bin << lo;
+    kk -= s.sel_below;
+    if (s.sel_count == kk || lo == 0) return prefix | ((1ull << lo) - 1);
+    hi = lo;
+  }
+}
+
+// Sort a[0, len) ascending, len a power of two from kSeg: each warp sorts
+// 256-key segments in registers, then bitonic merges of sorted runs (a
+// flip stage, then half-cleaners), strides >= kSeg in shared memory with a
+// barrier each, smaller ones in registers.
 __device__ void block_sort(uint64_t* a, int len) {
-  for (int size = 2; size <= len; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < len / 2; p += blockDim.x) {
+  constexpr int kWarps = kWideThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int segs = len / kSeg;
+  for (int sg = warp; sg < segs; sg += kWarps) {
+    uint64_t r[8];
+    uint64_t* p = a + sg * kSeg;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) r[i] = p[i * 32 + lane];
+    warp_sort<8>(r, lane);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i * 32 + lane] = r[i];
+  }
+  __syncthreads();
+  for (int m = kSeg; m < len; m <<= 1) {
+    for (int p = threadIdx.x; p < len / 2; p += kWideThreads) {
+      const int off = p & (m - 1), base = (p - off) * 2;
+      const int i = base + off, j = base + 2 * m - 1 - off;
+      const uint64_t lo = a[i], hi = a[j];
+      if (lo > hi) {
+        a[i] = hi;
+        a[j] = lo;
+      }
+    }
+    __syncthreads();
+    for (int stride = m >> 1; stride >= kSeg; stride >>= 1) {
+      for (int p = threadIdx.x; p < len / 2; p += kWideThreads) {
         const int i = 2 * p - (p & (stride - 1)), j = i + stride;
         const uint64_t lo = a[i], hi = a[j];
-        if ((i & size) == 0 ? lo > hi : lo < hi) {
+        if (lo > hi) {
           a[i] = hi;
           a[j] = lo;
         }
       }
       __syncthreads();
     }
-  }
-}
-
-// Merge the block's `count` buffered keys into its queue q[0, qn), sorted
-// ascending: sort the buffer's least power of two holding them (the rest
-// of the queue's width padded with kNoKey), keep the smaller of q[i] and
-// buf[qn - 1 - i] and merge that bitonic sequence.
-__device__ void block_flush(uint64_t* q, uint64_t* buf, int count, int qn) {
-  int len = 2;
-  while (len < count) len <<= 1;
-  const int fill = len > qn ? len : qn;
-  for (int i = count + threadIdx.x; i < fill; i += blockDim.x)
-    buf[i] = kNoKey;
-  __syncthreads();
-  block_sort(buf, len);
-  for (int i = threadIdx.x; i < qn; i += blockDim.x)
-    q[i] = kmin(q[i], buf[qn - 1 - i]);
-  __syncthreads();
-  for (int stride = qn >> 1; stride > 0; stride >>= 1) {
-    for (int p = threadIdx.x; p < qn / 2; p += blockDim.x) {
-      const int i = 2 * p - (p & (stride - 1)), j = i + stride;
-      const uint64_t lo = q[i], hi = q[j];
-      if (lo > hi) {
-        q[i] = hi;
-        q[j] = lo;
-      }
+    for (int sg = warp; sg < segs; sg += kWarps) {
+      uint64_t r[8];
+      uint64_t* p = a + sg * kSeg;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) r[i] = p[i * 32 + lane];
+      warp_clean<8>(r, lane);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i * 32 + lane] = r[i];
     }
     __syncthreads();
   }
 }
 
-// Shared memory: the queue (qn keys) then the buffer (bn keys). Before a
-// step the buffer holds at most bn - kBlockStep keys, so a step's appends
-// fit.
-__global__ void __launch_bounds__(kBlockThreads)
-block_select_kernel(const float* __restrict__ x, int64_t n,
-                    int64_t row_stride, int k, int qn, int bn,
-                    float* __restrict__ out_v, int64_t* __restrict__ out_i) {
+// Dynamic shared memory: the sort buffer (len keys, when len <= kSmemSort),
+// then the row's copy (n floats, when cache).
+__global__ void __launch_bounds__(kWideThreads)
+wide_select_kernel(const float* __restrict__ x, int64_t n, int64_t row_stride,
+                   int k, int len, int cache, int cb,
+                   float* __restrict__ out_v, int64_t* __restrict__ out_i,
+                   uint64_t* __restrict__ scratch) {
   extern __shared__ uint64_t smem[];
-  __shared__ int count;
-  uint64_t* q = smem;
-  uint64_t* buf = smem + qn;
+  __shared__ WideShared s;
   const int64_t row = blockIdx.x;
   const float* xr = x + row * row_stride;
-  for (int i = threadIdx.x; i < qn; i += blockDim.x) q[i] = kNoKey;
-  if (threadIdx.x == 0) count = 0;
+  const bool in_smem = len <= kSmemSort;
+  uint64_t* dst = in_smem ? smem : scratch + row * len;
+  const float* src = xr;
+  if (cache) {
+    float* copy = reinterpret_cast<float*>(smem + (in_smem ? len : 0));
+    for (int64_t c = threadIdx.x; c < n; c += kWideThreads)
+      copy[c] = __ldg(xr + c);
+    src = copy;
+  }
+  if (threadIdx.x == 0) s.count = 0;
   __syncthreads();
-  uint64_t thr = kNoKey;
-  for (int64_t c0 = 0; c0 < n; c0 += kBlockStep) {
-    float v[kBlockUnroll];
-#pragma unroll
-    for (int u = 0; u < kBlockUnroll; ++u) {
-      const int64_t c = c0 + u * kBlockThreads + threadIdx.x;
-      v[u] = c < n ? __ldg(xr + c) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kBlockUnroll; ++u) {
-      const int64_t c = c0 + u * kBlockThreads + threadIdx.x;
-      if (c < n) {
-        const uint64_t key = make_key(v[u], c);
-        if (key < thr) buf[atomicAdd(&count, 1)] = key;
-      }
-    }
-    __syncthreads();
-    const int filled = count;   // the same on every thread: branches agree
-    __syncthreads();            // read by all before the next append
-    if (filled > bn - kBlockStep || (c0 + kBlockStep >= n && filled > 0)) {
-      if (threadIdx.x == 0) count = 0;
-      block_flush(q, buf, filled, qn);
-      thr = q[k - 1];
+  const uint64_t kstar = k == n ? kNoKey : radix_kth(src, n, k, cb, s);
+
+  // the k keys at or below kstar, in any order, then padding to len
+  const int lane = threadIdx.x & 31;
+  for (int64_t c0 = threadIdx.x - lane; c0 < n; c0 += kWideThreads) {
+    const int64_t c = c0 + lane;
+    const uint64_t key = c < n ? make_key(src[c], c) : kNoKey;
+    const bool take = c < n && key <= kstar;
+    const unsigned m = __ballot_sync(kFull, take);
+    if (m) {
+      const int first = __ffs(m) - 1;
+      int base = 0;
+      if (lane == first) base = atomicAdd(&s.count, __popc(m));
+      base = __shfl_sync(kFull, base, first);
+      if (take) dst[base + __popc(m & ((1u << lane) - 1u))] = key;
     }
   }
-  const uint32_t* bits = reinterpret_cast<const uint32_t*>(xr);
+  for (int i = k + threadIdx.x; i < len; i += kWideThreads) dst[i] = kNoKey;
+  __syncthreads();
+  if (!in_smem) return;
+
+  block_sort(dst, len);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(src);
   uint32_t* ov = reinterpret_cast<uint32_t*>(out_v) + row * k;
   int64_t* oi = out_i + row * k;
-  for (int i = threadIdx.x; i < k; i += blockDim.x) {
-    const uint32_t c = (uint32_t)q[i];
+  for (int i = threadIdx.x; i < k; i += kWideThreads) {
+    const uint32_t c = (uint32_t)dst[i];
     oi[i] = (int64_t)c;
     ov[i] = bits[c];
   }
+}
+
+// L > kSmemSort: sort every chunk of kSmemSort keys in shared memory.
+__global__ void __launch_bounds__(kWideThreads)
+chunk_sort_kernel(uint64_t* __restrict__ keys) {
+  extern __shared__ uint64_t smem[];
+  uint64_t* g = keys + (int64_t)blockIdx.x * kSmemSort;
+  for (int i = threadIdx.x; i < kSmemSort; i += kWideThreads) smem[i] = g[i];
+  __syncthreads();
+  block_sort(smem, kSmemSort);
+  for (int i = threadIdx.x; i < kSmemSort; i += kWideThreads) g[i] = smem[i];
+}
+
+// One round of pairwise merges of sorted runs of `run` keys in rows of
+// `len` (both powers of two, run < len): a key's place is its rank in its
+// own run plus the count of the partner run's keys below it (a left run's
+// key goes before an equal right one: the kNoKey padding repeats).
+__global__ void __launch_bounds__(256)
+merge_pass_kernel(const uint64_t* __restrict__ src, uint64_t* __restrict__ dst,
+                  int64_t total, int len, int run) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const int64_t row = g / len;
+  const int i = (int)(g - row * len);
+  const uint64_t* s = src + row * len;
+  const int r0 = i & ~(run - 1);
+  const bool left = (r0 & run) == 0;
+  const int p0 = left ? r0 + run : r0 - run;
+  const uint64_t key = s[i];
+  int lo = 0, hi = run;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const uint64_t v = s[p0 + mid];
+    if (left ? v < key : v <= key) lo = mid + 1;
+    else hi = mid;
+  }
+  dst[row * len + (r0 < p0 ? r0 : p0) + (i - r0) + lo] = key;
+}
+
+// The first k sorted keys of every row: their columns and the row's bits.
+__global__ void __launch_bounds__(256)
+emit_kernel(const uint64_t* __restrict__ keys, int len,
+            const float* __restrict__ x, int64_t row_stride, int k,
+            int64_t rows, float* __restrict__ out_v,
+            int64_t* __restrict__ out_i) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= rows * k) return;
+  const int64_t row = g / k;
+  const uint32_t c = (uint32_t)keys[row * len + (g - row * k)];
+  out_i[g] = (int64_t)c;
+  reinterpret_cast<uint32_t*>(out_v)[g] =
+      reinterpret_cast<const uint32_t*>(x + row * row_stride)[c];
 }
 
 void launch_warp(const int64_t* a) {
@@ -435,18 +459,44 @@ void launch_warp(const int64_t* a) {
         x, a[kRows], a[kN], a[kRowStride], k, w, out_v, out_i);
 }
 
-int launch_block(const int64_t* a) {
-  const int qn = (int)a[kQueue], bn = (int)a[kBuf];
-  const size_t smem = (size_t)(qn + bn) * sizeof(uint64_t);
-  const cudaError_t e = cudaFuncSetAttribute(
-      block_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+int launch_wide(const int64_t* a) {
+  const float* x = reinterpret_cast<const float*>(a[kX]);
+  float* out_v = reinterpret_cast<float*>(a[kOutV]);
+  int64_t* out_i = reinterpret_cast<int64_t*>(a[kOutI]);
+  uint64_t* scratch = reinterpret_cast<uint64_t*>(a[kScratch]);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(a[kStream]);
+  const int64_t rows = a[kRows], n = a[kN];
+  const int k = (int)a[kK], len = (int)a[kQueue], cache = (int)a[kCache];
+  int cb = 1;
+  while ((int64_t(1) << cb) < n) ++cb;
+  const bool in_smem = len <= kSmemSort;
+  const size_t smem = (in_smem ? (size_t)len * 8 : 0) +
+                      (cache ? (size_t)n * 4 : 0);
+  cudaError_t e = cudaFuncSetAttribute(
+      wide_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  block_select_kernel<<<dim3((unsigned)a[kGrid]), kBlockThreads, smem,
-                        reinterpret_cast<cudaStream_t>(a[kStream])>>>(
-      reinterpret_cast<const float*>(a[kX]), a[kN], a[kRowStride],
-      (int)a[kK], qn, bn, reinterpret_cast<float*>(a[kOutV]),
-      reinterpret_cast<int64_t*>(a[kOutI]));
+  wide_select_kernel<<<dim3((unsigned)rows), kWideThreads, smem, s>>>(
+      x, n, a[kRowStride], k, len, cache, cb, out_v, out_i, scratch);
+  if (in_smem) return (int)cudaSuccess;
+  e = cudaFuncSetAttribute(chunk_sort_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemSort * 8);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t total = rows * len;
+  chunk_sort_kernel<<<dim3((unsigned)(total / kSmemSort)), kWideThreads,
+                      kSmemSort * 8, s>>>(scratch);
+  uint64_t* k0 = scratch;
+  uint64_t* k1 = scratch + total;
+  for (int run = kSmemSort; run < len; run *= 2) {
+    merge_pass_kernel<<<dim3((unsigned)((total + 255) / 256)), 256, 0, s>>>(
+        k0, k1, total, len, run);
+    uint64_t* t = k0;
+    k0 = k1;
+    k1 = t;
+  }
+  emit_kernel<<<dim3((unsigned)((rows * k + 255) / 256)), 256, 0, s>>>(
+      k0, len, x, a[kRowStride], k, rows, out_v, out_i);
   return (int)cudaSuccess;
 }
 
@@ -462,21 +512,25 @@ using namespace msann_k3;
 // cudaErrorInvalidValue before anything is launched.
 extern "C" int msann_select(const int64_t* a) {
   const int64_t queue = a[kQueue], k = a[kK], w = a[kWarpsPerRow];
+  const int64_t n = a[kN];
   if (a[kRows] <= 0 || k <= 0) return (int)cudaSuccess;
-  if (k > queue || k > a[kN] || a[kN] >= (int64_t(1) << 32))
+  if (k > queue || k > n || n >= (int64_t(1) << 32))
     return (int)cudaErrorInvalidValue;
-  if (a[kBuf] == 0) {
+  if (queue <= 256) {
     if ((queue != 32 && queue != 64 && queue != 128 && queue != 256) ||
-        w < 1 || a[kThreads] % (32 * w) != 0 || a[kThreads] > kMaxThreads)
+        a[kCache] != 0 || w < 1 || a[kThreads] % (32 * w) != 0 ||
+        a[kThreads] > kMaxThreads)
       return (int)cudaErrorInvalidValue;
     launch_warp(a);
   } else {
-    if (!pow2(queue) || queue < kMinQueue || queue > kMaxQueue ||
-        !pow2(a[kBuf]) || a[kBuf] < queue || a[kBuf] < 2 * kBlockStep ||
-        a[kBuf] > kMaxQueue || a[kThreads] != kBlockThreads ||
-        a[kGrid] != a[kRows])
+    const int64_t smem = (queue <= kSmemSort ? queue * 8 : 0) +
+                         (a[kCache] ? n * 4 : 0);
+    if (!pow2(queue) || queue < kMinSort || queue > (int64_t(1) << 30) ||
+        a[kThreads] != kWideThreads || a[kGrid] != a[kRows] ||
+        smem > kWideSmem || (queue > kSmemSort && a[kScratch] == 0) ||
+        a[kRows] > 0x7fffffffLL || a[kRows] * queue >= (int64_t(1) << 40))
       return (int)cudaErrorInvalidValue;
-    const int e = launch_block(a);
+    const int e = launch_wide(a);
     if (e != 0) return e;
   }
   return (int)cudaGetLastError();

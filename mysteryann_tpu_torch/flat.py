@@ -39,6 +39,7 @@ from mysteryann_tpu_torch.ops.knn import (exact_knn_device,
                                           int8_knn_device,
                                           quantize_global_int8,
                                           quantize_rows_int8)
+from mysteryann_tpu_torch.ops.score_select import aligned_rows
 from mysteryann_tpu_torch.ops.sort import topk_smallest
 
 
@@ -105,7 +106,8 @@ class FlatIndex:
                 self.base_norm = (torch.sum(self.base * self.base, dim=1)
                                   if self.metric == Metric.L2 else None)
         elif precision == "bf16":
-            self.base_bf16 = self.base.to(torch.bfloat16)
+            # rows 16 bytes apart: the fused scan (K3f) reads it in place
+            self.base_bf16 = aligned_rows(self.base.to(torch.bfloat16))
         elif precision == "scan":
             from mysteryann_tpu_torch.ops.scan import make_scan_table
             if self.metric == Metric.L2:

@@ -6,7 +6,9 @@ entry point. At first use it is compiled for ``sm_90a`` into the package's
 and the caller binds the entry point with ``ctypes``. The host runtime
 (``csrc/msann_native.cpp``) is built the same way with ``g++``
 (``native/__init__.py``). A library is named after its source's content
-hash, so an edited source is rebuilt and an unchanged one is reused.
+hash (with the headers it includes by a quoted name from its own
+directory), so an edited source is rebuilt and an unchanged one is
+reused.
 Compiling concurrently from several threads or processes is safe: each
 build writes a private temporary file and renames it into place.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,10 +40,22 @@ def find_nvcc() -> str:
                        "csrc/*.cu with the CUDA toolkit")
 
 
+def _local_includes(text: bytes) -> List[str]:
+    return [m.decode() for m in re.findall(rb'^\s*#include\s+"([^"]+)"',
+                                            text, re.M)]
+
+
 def library_path(source: str) -> str:
-    """``build/libmsann_<stem>_<hash of the source>.so``."""
+    """``build/libmsann_<stem>_<hash>.so``, the hash of the source and of
+    the headers it includes by a quoted name (from its own directory)."""
+    h = hashlib.sha256()
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        text = f.read()
+    h.update(text)
+    for name in _local_includes(text):
+        with open(os.path.join(os.path.dirname(source), name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"libmsann_{stem}_{digest}.so")
 

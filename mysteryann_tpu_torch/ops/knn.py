@@ -14,10 +14,12 @@ package's ``approx=True`` path (``lax.approx_min_k``, the TPU's
 partial-reduce) becomes the same exact selection, so ``approx`` and
 ``recall_target`` change nothing here.
 
-The matmul is not fused into the selection, so every tile's
-[B, tile] distance block is materialized, and on the CPU its int64
-selection key too: the tile is sized from the memory the device has free
-and the bytes the selection holds there (``_tile_rows``).
+On f32 and int8 operands the matmul is not fused into the selection, so
+every tile's [B, tile] distance block is materialized, and on the CPU its
+int64 selection key too: the tile is sized from the memory the device has
+free and the bytes the selection holds there (``_tile_rows``). On bf16
+operands the product and the selection are one kernel on the card (K3f,
+``ops/score_select.py``).
 
 The int8 scans (``int8_knn_device``, ``int8_global_knn_device``) take their
 s8 · s8 → s32 products from a library matmul, as the JAX package leaves
@@ -34,7 +36,9 @@ import numpy as np
 import torch
 
 from mysteryann_tpu_torch.ops.distances import Metric, pairwise_dist, prepare_vectors
-from mysteryann_tpu_torch.ops.sort import selection_bytes, topk_smallest
+from mysteryann_tpu_torch.ops.sort import (_REF_BYTES_PER_ELEM,
+                                           selection_bytes, topk_smallest,
+                                           topk_smallest_ref)
 
 # bytes of temporaries per element of a [B, tile] block, besides what the
 # selection holds (ops/sort.selection_bytes): the f32 distances and the
@@ -44,46 +48,52 @@ _TILE_BYTES_PER_ELEM = 16
 _CPU_BLOCK_BYTES = 256 << 20
 
 
-def _tile_rows(n_queries: int, tile: int, device: torch.device) -> int:
+def _tile_rows(n_queries: int, tile: int, device: torch.device,
+               select=topk_smallest) -> int:
     """Largest base tile (≤ ``tile``) whose temporaries, the score tile's
-    and its selection's, fit a quarter of the device's free memory (a fixed
-    256 MB block on the CPU)."""
+    and those of the selection ``select``, fit a quarter of the device's
+    free memory (a fixed 256 MB block on the CPU)."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         budget = free // 4
     else:
         budget = _CPU_BLOCK_BYTES
-    per_elem = _TILE_BYTES_PER_ELEM + selection_bytes(device)
+    per_elem = _TILE_BYTES_PER_ELEM + (
+        _REF_BYTES_PER_ELEM if select is topk_smallest_ref
+        else selection_bytes(device))
     fit = budget // max(1, n_queries * per_elem)
     return int(max(256, min(tile, fit)))
 
 
-def _merge_topk(best, t_d, t_i, k: int):
+def _merge_topk(best, t_d, t_i, k: int, select=topk_smallest):
     """Fold a tile's (dists, ids) into the running top-k — the tiny exact
     [B, k+kk] merge; ties keep the earlier entry, like ``lax.top_k``."""
     best_d, best_i = best
     cat_d = torch.cat([best_d, t_d], dim=1)
     cat_i = torch.cat([best_i, t_i], dim=1)
-    vals, pos = topk_smallest(cat_d, k)
+    vals, pos = select(cat_d, k)
     return vals, cat_i.gather(1, pos)
 
 
 def _tiled_topk(score_tile, B: int, nb: int, k: int, tile: int,
-                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+                device: torch.device, select=topk_smallest
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Running exact top-k of a scan: ``score_tile(t0, t1)`` gives the
     distances [B, t1 - t0] of base rows t0..t1, at most ``tile`` rows at a
     time (fewer when device memory is short; the result does not depend on
-    the tile) → (dists [B, k], ids [B, k] int32)."""
-    tile = _tile_rows(B, min(tile, nb), device)
+    the tile) → (dists [B, k], ids [B, k] int32), selected by ``select``
+    (``topk_smallest_ref``: the plain version on any device)."""
+    tile = _tile_rows(B, min(tile, nb), device, select)
     best = (
         torch.full((B, k), float("inf"), dtype=torch.float32, device=device),
         torch.full((B, k), -1, dtype=torch.int32, device=device),
     )
     for t0 in range(0, nb, tile):
         dists = score_tile(t0, min(t0 + tile, nb))
-        t_d, t_pos = topk_smallest(dists, min(k, dists.shape[1]))
+        t_d, t_pos = select(dists, min(k, dists.shape[1]))
         del dists
-        best = _merge_topk(best, t_d, t_pos.to(torch.int32) + t0, k)
+        best = _merge_topk(best, t_d, t_pos.to(torch.int32) + t0, k,
+                           select)
     return best
 
 
@@ -103,9 +113,21 @@ def exact_knn_device(
     short; the result does not depend on the tile). ``approx``,
     ``precision`` and ``recall_target`` are accepted for call-site parity
     with the JAX package and change nothing: selection is exact and
-    matmuls are float32.
+    products accumulate in float32. Both operands bf16: the fused score
+    product and selection (``ops/score_select.score_topk``: K3f on the card
+    for k <= 256, no distance block written; the same tiles on the CPU).
     """
     metric = Metric.parse(metric)
+    if (queries.dtype == torch.bfloat16 and base.dtype == torch.bfloat16
+            and 0 < k <= base.shape[0]):
+        from mysteryann_tpu_torch.ops.distances import squared_norms
+        from mysteryann_tpu_torch.ops.score_select import score_topk
+        q_sq = t_sq = None
+        if metric == Metric.L2:
+            q_sq = squared_norms(queries).float()
+            t_sq = squared_norms(base).float()
+        d, i = score_topk(queries, base, k, metric, q_sq, t_sq, tile=tile)
+        return d, i.to(torch.int32)
     return _tiled_topk(
         lambda t0, t1: pairwise_dist(queries, base[t0:t1], metric=metric),
         queries.shape[0], base.shape[0], k, tile, base.device)

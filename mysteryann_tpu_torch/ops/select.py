@@ -15,14 +15,20 @@ Routes, chosen by the pure ``_plan``, both launching the kernel:
   for a long row when rows are few; a per-lane compare against the running
   k-th key and a bitonic merge of the candidates into a queue held across
   the warp's registers.
-- ``"wide"``, ``MAX_K < k <= MAX_WIDE_K``: one block a row, the queue and
-  the candidate buffer in shared memory, sorted and merged block-wide (the
-  IVF exactness gates select every cluster: k = n = 2,000 or 6,324).
+- ``"wide"``, any larger ``k <= n``: one block a row selects, then sorts
+  only k keys: a radix select of the k-th composite key (8 bits a pass,
+  shared-memory histograms), one pass collecting the k keys at or below
+  it, and a sort of those k padded to a power of two ``L`` (warp segments
+  in registers, bitonic merges in shared memory). For ``L >
+  SMEM_SORT_KEYS`` the keys go through global scratch: chunks of
+  ``SMEM_SORT_KEYS`` sorted in shared memory, then merged pairwise (the
+  IVF exactness gates select every cluster: k = n = 2,000, 6,324, 14,142).
+  The row is copied to shared memory when it fits beside the sort buffer.
 
 Rows are read with their own stride; only a tensor whose rows one stride
 cannot address (a non-unit column stride, unmergeable leading dims) is
 copied first. The kernel takes float32, the dtype of every score block the
-port selects on; another dtype, or ``k > MAX_WIDE_K``, raises.
+port selects on; another dtype raises.
 
 The kernel compares the same 64-bit (order image, column) key as the plain
 version (``sort.topk_smallest_ref``), so both return the same bits on any
@@ -48,17 +54,18 @@ from mysteryann_tpu_torch.ops._nvcc import CSRC, build_library
 SOURCE = os.path.join(CSRC, "select.cu")
 
 MAX_K = 256                 # the warp queue's widest: 32 lanes x 8 keys
-MAX_WIDE_K = 8192           # the block queue's widest (csrc kMaxQueue)
 ROW_THREADS = 128           # one warp a row: 4 rows a block
 MAX_WARPS_PER_ROW = 8       # a block of 256 threads on one row
 MIN_COLS_PER_WARP = 4096    # a row is split only into shares this long
 WARPS_PER_SM = 32           # resident warps a call should give every SM
-WIDE_THREADS = 256          # the block queue: one block a row (kBlockThreads)
-WIDE_STEP = 1024            # columns it reads between merges (kBlockStep)
-WIDE_MIN_QUEUE = 512        # its narrowest queue (kMinQueue)
+WIDE_THREADS = 256          # the wide route: one block a row (kWideThreads)
+WIDE_MIN_SORT = 512         # its narrowest sort (kMinSort)
+SMEM_SORT_KEYS = 8192       # its widest sort in shared memory (kSmemSort)
+WIDE_SMEM = 200 << 10       # its dynamic shared memory, at most (kWideSmem)
 # msann_select's one argument: x, rows, n, row stride, k, values, indices,
-# queue keys, buffer keys, warps per row, grid, threads, stream
-_pack_args = struct.Struct("13q").pack
+# queue keys or sort length, row cached, scratch, warps per row, grid,
+# threads, stream
+_pack_args = struct.Struct("14q").pack
 
 launches = 0        # kernel launches since import (or the last reset)
 wide_launches = 0   # those of the wide route
@@ -75,10 +82,11 @@ class DeviceInfo(NamedTuple):
 
 
 class Plan(NamedTuple):
-    route: str            # "k3" (the warp queue) or "wide" (the block's)
+    route: str            # "k3" (the warp queue) or "wide" (select + sort)
     copy: bool            # copy to contiguous rows first
-    queue: int            # keys in the queue, >= k
-    buf: int              # wide: keys in the candidate buffer; k3: 0
+    queue: int            # k3: keys in the queue; wide: the sort length L
+    cache: bool           # wide: the row copied to shared memory once
+    scratch: int          # wide: int64 keys of global scratch (L > 8192)
     warps_per_row: int
     grid: int
     threads: int
@@ -105,18 +113,21 @@ def _plan(k: int, n: int, rows: int, dtype: torch.dtype,
     few to give every SM WARPS_PER_SM warps: then W warps of one block
     share a row (W a power of two up to MAX_WARPS_PER_ROW, each share at
     least MIN_COLS_PER_WARP columns). The queue holds 32 x 1, 2, 4 or 8
-    keys, the least that holds k. Wider k: a block a row, a queue of the
-    least power of two from WIDE_MIN_QUEUE that holds k, a buffer as wide
-    and at least two steps."""
+    keys, the least that holds k. Wider k: a block a row, sorting L keys,
+    the least power of two from WIDE_MIN_SORT that holds k; the row is
+    cached in shared memory when it fits beside a sort buffer of L keys
+    (L <= SMEM_SORT_KEYS) within WIDE_SMEM; past SMEM_SORT_KEYS the keys
+    sort through 2 x rows x L keys of global scratch."""
     if dtype != torch.float32:
         raise TypeError(f"K3 selects on float32 scores, got {dtype}")
-    if k > MAX_WIDE_K:
-        raise ValueError(f"K3 selects at most {MAX_WIDE_K} a row, got k={k}")
     copy = row_stride is None
     if k > MAX_K:
-        queue = _pow2(k, WIDE_MIN_QUEUE)
-        return Plan("wide", copy, queue, max(queue, 2 * WIDE_STEP), 1,
-                    max(1, rows), WIDE_THREADS)
+        sort = _pow2(k, WIDE_MIN_SORT)
+        in_smem = sort <= SMEM_SORT_KEYS
+        cache = (8 * sort if in_smem else 0) + 4 * n <= WIDE_SMEM
+        return Plan("wide", copy, sort, cache,
+                    0 if in_smem else 2 * rows * sort, 1, max(1, rows),
+                    WIDE_THREADS)
     queue = _pow2(k, 32)
     want = _cdiv(dev.n_sms * WARPS_PER_SM, max(1, rows))
     w = 1
@@ -125,9 +136,9 @@ def _plan(k: int, n: int, rows: int, dtype: torch.dtype,
         w *= 2
     if w == 1:
         rows_per_block = ROW_THREADS // 32
-        return Plan("k3", copy, queue, 0, 1,
+        return Plan("k3", copy, queue, False, 0, 1,
                     max(1, _cdiv(rows, rows_per_block)), ROW_THREADS)
-    return Plan("k3", copy, queue, 0, w, max(1, rows), 32 * w)
+    return Plan("k3", copy, queue, False, 0, w, max(1, rows), 32 * w)
 
 
 def build(force: bool = False) -> float:
@@ -184,8 +195,12 @@ def _launch(x2: torch.Tensor, stride: int, k: int, plan: Plan,
     if _fn is None:
         build()
     d = x2.get_device()
+    scratch = (torch.empty(plan.scratch, dtype=torch.int64, device=x2.device)
+               if plan.scratch else None)
     args = _pack_args(x2.data_ptr(), x2.shape[0], x2.shape[1], stride, k,
-                      vals.data_ptr(), idx.data_ptr(), plan.queue, plan.buf,
+                      vals.data_ptr(), idx.data_ptr(), plan.queue,
+                      int(plan.cache),
+                      scratch.data_ptr() if scratch is not None else 0,
                       plan.warps_per_row, plan.grid, plan.threads,
                       _raw_stream(d))
     if d == _get_device():

@@ -8,6 +8,7 @@ CUDA source on one card, in turns.
     python scripts/torch_kernel_ab.py select                        # K3
     python scripts/torch_kernel_ab.py select --other OLD/mysteryann_tpu_torch/csrc/select.cu
     python scripts/torch_kernel_ab.py select --shapes seed,ivf       # name prefixes
+    python scripts/torch_kernel_ab.py score_select [--shapes seed,flat]  # K3f
 
 K1, the row gather: every version is timed through its own Python wrapper,
 so host-launched times include each design's host path. ``--other`` names
@@ -42,7 +43,26 @@ order others, this, this, others reversed; the plain version and
 ``torch.topk(x, k, largest=False)`` (the library call, tie order aside)
 the same way, once each; host enqueue us per call where the bound is under
 a millisecond (there the host path matters). The bound counts the input
-read once and k values and int64 indices written a row at 3.35 TB/s.
+read once and k values and int64 indices written a row at 3.35 TB/s. A
+version that refuses a shape (an older wide route past k = 8,192) is
+reported as refusing it and not timed there.
+
+K3f, the bf16 score product fused with the selection
+(``ops/score_select.score_topk``): at every shape of SCORE_SHAPES (the seed
+scan, flat bf16, a fused-build batch, one query) the kernel is held against
+its plain version (``score_topk_ref``) under ``check_tolerance``, then
+graph-timed (min of two runs, each the median of its trials) beside the
+plain version and the fastest two-call library composite, a bf16
+``torch.matmul`` then ``torch.topk`` (no single PyTorch call computes the
+function), and the unfused route (the f32 tiled matmul of the bf16 values
+selected by K3: what the seed scan and flat bf16 ran before K3f, and what
+a call ``_plan`` refuses still runs; CUDA-event timed, since it reads the
+free memory to size its tiles). At d % 8 != 0 the table is made by
+``aligned_rows``, as the seed sample and ``FlatIndex`` make theirs, and
+``copy_ms`` times the same call on a contiguous table, which the wrapper
+copies, padded, on every call. The bound is the larger of 2·B·n·d flops
+at 989 TFLOP/s (bf16) and the operands read once with k values and int64
+ids written at 3.35 TB/s.
 
 Prints the card's name and power limit first, then every build's ptxas
 lines.
@@ -64,9 +84,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 from chip_smoke import (BF16_FLOP_S, HBM_BYTES_S, enqueue_us,  # noqa: E402
-                        index_sets, k3_bound_ms, k3_plain, random_bytes,
-                        rotating, time_ms, time_ms_graph)
-from mysteryann_tpu_torch.ops import gather, scan, select  # noqa: E402
+                        index_sets, k3_bound_ms, k3_plain, k3f_bound,
+                        k3f_library, random_bytes, rotating, time_ms,
+                        time_ms_graph)
+from mysteryann_tpu_torch.ops import gather, scan, score_select  # noqa: E402
+from mysteryann_tpu_torch.ops import select  # noqa: E402
 from mysteryann_tpu_torch.ops._nvcc import build_library  # noqa: E402
 
 # (name, table shape, dtype, rows per call): the narrow rows of the graph
@@ -116,6 +138,23 @@ SELECT_SHAPES = (
     ("wide_topc_300", 8192, 2000, 300, 10),
     ("wide_gate_1m", 1024, 2000, 2000, 10),
     ("wide_gate_10m", 256, 6324, 6324, 10),
+    ("wide_gate_50m", 64, 14142, 14142, 5),
+    ("wide_k14142", 64, 20_000, 14142, 5),
+    ("wide_k8193", 256, 20_000, 8193, 5),
+)
+
+# (name, queries B, table rows n, d, k, reps): the seed scan of an
+# 8,192-query batch over the 1M world's 1-in-2 sample, flat bf16 over the 1M
+# base (k = 10 x oversample 2), a fused-build phase-D batch of 8,192 nodes
+# seeding 16 from a 1-in-4 sample, a small batch of 256 (a CLI's, the
+# build's last), one query, and the seed scan at GloVe's d = 100
+SCORE_SHAPES = (
+    ("seed_scan", 8192, 500_000, 128, 48, 3),
+    ("flat_bf16", 8192, 1_000_000, 128, 20, 3),
+    ("build_batch", 8192, 250_000, 128, 16, 3),
+    ("small_batch", 256, 250_000, 128, 16, 10),
+    ("one_query", 1, 500_000, 128, 48, 20),
+    ("seed_scan_d100", 8192, 500_000, 100, 48, 3),
 )
 
 
@@ -266,18 +305,26 @@ def run_select(args, dev) -> None:
             continue
         x = torch.randn((rows, n), generator=g, device=dev)
         want = k3_plain(x, k)
+        refuse = set()
         for ver, mod in versions.items():
-            got = mod.topk_smallest_cuda(x, k)
+            try:
+                got = mod.topk_smallest_cuda(x, k)
+            except ValueError:
+                refuse.add(ver)
+                continue
             torch.cuda.synchronize()
             if not (torch.equal(got[1], want[1])
                     and torch.equal(got[0].view(torch.int32),
                                     want[0].view(torch.int32))):
                 sys.exit(f"{ver}: differs from the plain version at {name}")
-        del got, want
+            del got
+        del want
         bound = k3_bound_ms(rows, n, k)
         enqueue = bound < 1.0
-        times = {v: [] for v in versions}
+        times = {v: [] for v in versions if v not in refuse}
         for ver in order:
+            if ver in refuse:
+                continue
             times[ver].append(_readings(
                 lambda m=versions[ver]: m.topk_smallest_cuda(x, k), reps,
                 enqueue))
@@ -289,11 +336,62 @@ def run_select(args, dev) -> None:
             "kernel": "select", "shape": name, "rows": rows, "n": n, "k": k,
             "plan": select.plan_for(x, k)._asdict(), "bit_identical": True,
             "bound_ms": bound, "versions": times, "plain": plain,
-            "library": library,
+            "library": library, "refuses": sorted(refuse),
             "share_graph": {v: bound / min(t["graph_ms"] for t in r)
                             for v, r in times.items()},
             "sources": dict(zip(others, args.other))}), flush=True)
         del x
+        torch.cuda.empty_cache()
+
+
+def run_score_select(args, dev) -> None:
+    score_select.build(force=True)
+    print(json.dumps({"build": "this", "source": score_select.SOURCE,
+                      "ptxas": _ptxas(score_select.build_log)}), flush=True)
+    wanted = args.shapes.split(",") if args.shapes else None
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for name, B, n, d, k, reps in SCORE_SHAPES:
+        if wanted and not any(name.startswith(w) for w in wanted):
+            continue
+        q = torch.randn((B, d), generator=g, device=dev).to(torch.bfloat16)
+        t_flat = torch.randn((n, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        t = score_select.aligned_rows(t_flat)
+        if t.data_ptr() == t_flat.data_ptr():
+            t_flat = None
+        got = score_select.score_topk(q, t, k, "ip")
+        want = score_select.score_topk_ref(q, t, k, "ip")
+        tol = score_select.check_tolerance(q, t, "ip", got, want)
+        if not tol["ok"]:
+            sys.exit(f"K3f outside its tolerance at {name}: {tol}")
+        del got, want
+        trials = 7 if reps >= 10 else 3
+        kernel = [time_ms_graph(
+            lambda: score_select.score_topk(q, t, k, "ip"), reps, trials)
+            for _ in range(2)]
+        plain = time_ms(lambda: score_select.score_topk_ref(q, t, k, "ip"),
+                        1, 3)
+        library = [time_ms_graph(lambda: k3f_library(q, t, k), reps,
+                                 trials) for _ in range(2)]
+        unfused = time_ms(lambda: score_select._tiled(
+            q, t, k, score_select.Metric.IP, None, None, None,
+            score_select.topk_smallest), reps, trials)
+        copy = None
+        if t_flat is not None:
+            copy = min(time_ms_graph(
+                lambda: score_select.score_topk(q, t_flat, k, "ip"), reps,
+                trials) for _ in range(2))
+        bound, by = k3f_bound(B, n, d, k)
+        print(json.dumps({
+            "kernel": "score_select", "shape": name, "B": B, "n": n, "d": d,
+            "k": k, "plan": score_select.plan_for(q, t, k)._asdict(),
+            "tolerance": tol, "graph_ms": kernel, "ms": min(kernel),
+            "plain_ms": plain, "library_graph_ms": library,
+            "library_ms": min(library), "unfused_ms": unfused,
+            "copy_ms": copy, "bound_ms": bound, "bound_by": by,
+            "share": bound / min(kernel)}), flush=True)
+        del q, t, t_flat
         torch.cuda.empty_cache()
 
 
@@ -343,12 +441,13 @@ def run_scan(args, dev) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("kernel", choices=("gather", "scan", "select"))
+    p.add_argument("kernel", choices=("gather", "scan", "select",
+                                      "score_select"))
     p.add_argument("--other", action="append", default=[],
                    help="another source of the same kernel (repeatable)")
     p.add_argument("--shapes", default="",
-                   help="gather, select: comma-separated prefixes of shape "
-                        "names")
+                   help="gather, select, score_select: comma-separated "
+                        "prefixes of shape names")
     p.add_argument("--n", type=int, default=1_000_000, help="scan: rows")
     p.add_argument("--queries", type=int, default=8192, help="scan: queries")
     p.add_argument("--dim", type=int, default=128, help="scan: dimension")
@@ -360,8 +459,8 @@ def main() -> None:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    {"gather": run_gather, "scan": run_scan,
-     "select": run_select}[args.kernel](args, dev)
+    {"gather": run_gather, "scan": run_scan, "select": run_select,
+     "score_select": run_score_select}[args.kernel](args, dev)
 
 
 if __name__ == "__main__":

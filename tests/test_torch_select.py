@@ -15,9 +15,9 @@ bits and equal indices, with two documented exceptions:
 - ``approx_min_k`` on the CPU picks other members of an exact tie: there
   the values are compared bit for bit and each index must hold its value.
 
-The launch plan (``select._plan``: route, queue width, warps per row, and
-the refusals: another dtype, k past the block queue) is pure Python and
-pinned here. The kernel runs only on a CUDA device: those
+The launch plan (``select._plan``: route, queue width, warps per row, the
+wide route's sort length, row cache and scratch, and the refusal of
+another dtype) is pure Python and pinned here. The kernel runs only on a CUDA device: those
 tests are marked ``cuda`` and skip without one. The machine with the card
 has no jax, so this file imports the JAX package only inside the tests that
 use it; there the ``cuda`` tests run with
@@ -223,10 +223,16 @@ def test_plan_refuses_other_dtypes(dtype):
 
 
 def test_plan_refuses_k_past_the_block_queue():
-    assert ts._plan(ts.MAX_WIDE_K, 10_000, 4, torch.float32, 10_000,
-                    H100).route == "wide"
-    with pytest.raises(ValueError, match="at most 8192"):
-        ts._plan(ts.MAX_WIDE_K + 1, 10_000, 4, torch.float32, 10_000, H100)
+    """No k past the old block queue's 8,192 is refused: the wide route
+    takes every k <= n, sorting through global scratch past
+    SMEM_SORT_KEYS (the 50M world's gate: k = 14,142 of 14,142)."""
+    p = ts._plan(8192, 10_000, 4, torch.float32, 10_000, H100)
+    assert (p.route, p.queue, p.scratch) == ("wide", 8192, 0)
+    p = ts._plan(8193, 10_000, 4, torch.float32, 10_000, H100)
+    assert (p.route, p.queue, p.scratch) == ("wide", 16384, 2 * 4 * 16384)
+    p = ts._plan(14142, 14142, 64, torch.float32, 14142, H100)
+    assert (p.route, p.queue, p.cache, p.scratch) == (
+        "wide", 16384, True, 2 * 64 * 16384)
 
 
 @pytest.mark.parametrize("k,kpl", [(1, 1), (10, 1), (32, 1), (33, 2), (48, 2),
@@ -234,32 +240,42 @@ def test_plan_refuses_k_past_the_block_queue():
                                    (256, 8)])
 def test_plan_queue_width(k, kpl):
     p = ts._plan(k, 500_000, 8192, torch.float32, 500_000, H100)
-    assert (p.route, p.queue, p.buf, p.copy) == ("k3", 32 * kpl, 0, False)
+    assert (p.route, p.queue, p.cache, p.scratch, p.copy) == (
+        "k3", 32 * kpl, False, 0, False)
     assert p.queue >= k
 
 
-@pytest.mark.parametrize("k,queue,buf", [
-    (257, 512, 2048), (300, 512, 2048), (512, 512, 2048), (513, 1024, 2048),
-    (2000, 2048, 2048), (2049, 4096, 4096), (6324, 8192, 8192),
-    (8192, 8192, 8192)])
-def test_plan_block_queue(k, queue, buf):
-    """The wide route: a block a row, the queue the least power of two from
-    512 holding k, the buffer as wide and at least two steps."""
-    p = ts._plan(k, 8192, 1024, torch.float32, 8192, H100)
-    assert p == ts.Plan("wide", False, queue, buf, 1, 1024, 256)
-    assert buf >= 2 * ts.WIDE_STEP and (queue + buf) * 8 <= 128 << 10
+@pytest.mark.parametrize("k,n,sort,cache,scratch", [
+    (257, 2000, 512, True, 0), (300, 2000, 512, True, 0),
+    (512, 2000, 512, True, 0), (513, 2000, 1024, True, 0),
+    (2000, 2000, 2048, True, 0), (2049, 6324, 4096, True, 0),
+    (6324, 6324, 8192, True, 0), (8192, 8192, 8192, True, 0),
+    (300, 40_000, 512, True, 0), (300, 60_000, 512, False, 0),
+    (8192, 40_000, 8192, False, 0), (8193, 20_000, 16384, True, 2 * 1024 * 16384),
+    (14142, 60_000, 16384, False, 2 * 1024 * 16384)])
+def test_plan_block_queue(k, n, sort, cache, scratch):
+    """The wide route: a block a row sorting the least power of two from
+    512 keys that holds k, the row cached in shared memory when it fits
+    beside the sort buffer, global scratch past 8,192 keys."""
+    p = ts._plan(k, n, 1024, torch.float32, n, H100)
+    assert p == ts.Plan("wide", False, sort, cache, scratch, 1, 1024, 256)
+    in_smem = 8 * sort if sort <= ts.SMEM_SORT_KEYS else 0
+    assert (in_smem + 4 * n <= ts.WIDE_SMEM) == cache
 
 
 @pytest.mark.parametrize("k,route", [(1, "k3"), (256, "k3"), (257, "wide"),
-                                     (2000, "wide"), (8192, "wide")])
+                                     (2000, "wide"), (8192, "wide"),
+                                     (8193, "wide"), (14142, "wide")])
 def test_plan_routes(k, route):
-    assert ts._plan(k, 8192, 8192, torch.float32, 8192, H100).route == route
+    assert ts._plan(k, 20_000, 8192, torch.float32, 20_000,
+                    H100).route == route
 
 
 def test_plan_copies_only_unaddressable_rows():
     assert not ts._plan(20, 800, 131072, torch.float32, 800, H100).copy
     assert not ts._plan(20, 500, 64, torch.float32, 640, H100).copy
     assert ts._plan(20, 500, 64, torch.float32, None, H100).copy
+    assert ts._plan(300, 500, 64, torch.float32, None, H100).copy
 
 
 @pytest.mark.parametrize("rows,n,w,grid,threads", [
@@ -295,14 +311,15 @@ def test_source_agrees_with_the_wrapper():
     src = open(ts.SOURCE).read()
     fields = re.search(r"enum Arg \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"^\s*(k\w+)", fields, re.M)
-    assert names[-1] == "kArgs" and len(names) - 1 == 13
-    assert len(ts._pack_args(*range(13))) == 13 * 8
+    assert names[-1] == "kArgs" and len(names) - 1 == 14
+    assert len(ts._pack_args(*range(14))) == 14 * 8
     assert "kMaxThreads = 256;" in src and ts.MAX_WARPS_PER_ROW * 32 == 256
     assert ts.MAX_K == 32 * 8
-    assert f"kBlockThreads = {ts.WIDE_THREADS};" in src
-    assert "kBlockUnroll = 4;" in src and ts.WIDE_STEP == ts.WIDE_THREADS * 4
-    assert f"kMinQueue = {ts.WIDE_MIN_QUEUE};" in src
-    assert f"kMaxQueue = {ts.MAX_WIDE_K};" in src
+    assert f"kWideThreads = {ts.WIDE_THREADS};" in src
+    assert f"kMinSort = {ts.WIDE_MIN_SORT};" in src
+    assert f"kSmemSort = {ts.SMEM_SORT_KEYS};" in src
+    assert f"kWideSmem = {ts.WIDE_SMEM >> 10} << 10;" in src
+    assert '#include "k3_queue.cuh"' in src
 
 
 def test_reset_launches():
@@ -429,7 +446,7 @@ def _card_cases(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 10, 17, 32, 33, 40, 64, 100, 256, 257,
-                               600, 2000, 4096])
+                               600, 2000, 4096, 8192, 8193])
 def test_kernel_matches_plain(cuda_device, k):
     for name, x in _card_cases(cuda_device).items():
         kk = min(k, x.shape[-1])
@@ -445,10 +462,31 @@ def test_kernel_matches_plain(cuda_device, k):
 
 @pytest.mark.cuda
 def test_kernel_n_equals_k(cuda_device):
-    for k in (1, 32, 64, 200, 256, 257, 2000, 6324, 8192):
+    for k in (1, 32, 64, 200, 256, 257, 2000, 6324, 8192, 8193, 14142):
         x = torch.randint(-2, 3, (77, k), device=cuda_device).float()
         got, want = topk_smallest(x, k), topk_smallest_ref(x, k)
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k", [
+    (8192, 2000, 300), (1024, 2000, 2000), (256, 6324, 6324),
+    (64, 20_000, 14_142), (64, 20_000, 257), (16, 70_000, 600),
+    (8, 70_000, 9000), (3, 1_000_000, 8193)])
+def test_wide_route_bits(cuda_device, rows, n, k):
+    """The wide route at the paths' shapes (the probe choice at nprobe 300,
+    the 1M, 10M and 50M gates), rows past the shared-memory cache and
+    sorts through global scratch: bit for bit on Gaussian and on tied
+    rows."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(k)
+    for x in (torch.randn((rows, n), generator=g, device=cuda_device),
+              torch.randint(-4, 5, (rows, n), generator=g,
+                            device=cuda_device).float()):
+        got, want = topk_smallest(x, k), topk_smallest_ref(x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -462,9 +500,11 @@ def test_wide_route_counted(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses(cuda_device):
+    """int32 scores raise; k past the old block queue's 8,192 is answered."""
     x = torch.randint(-50, 50, (30, 2000), device=cuda_device,
                       dtype=torch.int32)
     with pytest.raises(TypeError, match="float32"):
         topk_smallest(x, 10)
-    with pytest.raises(ValueError, match="at most 8192"):
-        topk_smallest(torch.zeros((2, 9000), device=cuda_device), 8193)
+    y = torch.randn((2, 9000), device=cuda_device)
+    got, want = topk_smallest(y, 8193), topk_smallest_ref(y, 8193)
+    assert torch.equal(got[1], want[1])
