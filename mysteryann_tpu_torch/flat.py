@@ -41,6 +41,7 @@ from mysteryann_tpu_torch.ops.knn import (exact_knn_device,
                                           quantize_rows_int8)
 from mysteryann_tpu_torch.ops.score_select import aligned_rows
 from mysteryann_tpu_torch.ops.sort import topk_smallest
+from mysteryann_tpu_torch.utils.trace import tracer
 
 
 def _rerank_f32(base: torch.Tensor, q: torch.Tensor, cand_i: torch.Tensor,
@@ -123,32 +124,40 @@ class FlatIndex:
     def n_base(self) -> int:
         return self.base.shape[0]
 
-    def _search_batch(self, qs: torch.Tensor, k: int, kk: int):
-        """(ids [qb, k], dists [qb, k]) of one padded query batch."""
-        if self.precision == "scan":
-            from mysteryann_tpu_torch.ops.scan import flat_scan_topk
-            dd, ii = flat_scan_topk(qs, self.scan_table, self.n_base, k,
-                                    base_f32=self.base,
-                                    oversample=self.oversample)
-            return ii, dd
-        if self.precision == "f32":
-            dd, ii = exact_knn_device(qs, self.base, k=kk,
-                                      metric=self.metric, tile=self.tile)
-            return ii[:, :k], dd[:, :k]
-        if self.precision == "bf16":
-            _, ii = exact_knn_device(qs.to(torch.bfloat16), self.base_bf16,
-                                     k=kk, metric=self.metric,
-                                     tile=self.tile)
-        elif self.int8_scale == "global":
-            q_i8, _ = quantize_rows_int8(qs)
-            _, ii = int8_global_knn_device(q_i8, self.base_i8, k=kk,
-                                           tile=self.tile)
-        else:
-            _, ii = int8_knn_device(qs, self.base_i8, self.base_scale, k=kk,
-                                    metric=self.metric, tile=self.tile,
-                                    base_norm=self.base_norm)
-        dd, ii = _rerank_f32(self.base, qs, torch.clamp(ii, min=0), k,
-                             self.metric)
+    def _search_batch(self, qs: torch.Tensor, k: int, kk: int, tr):
+        """(ids [qb, k], dists [qb, k]) of one padded query batch: the scan
+        (``msann.flat.scan``), then, below f32, the exact f32 rerank of its
+        head (``msann.flat.rerank``)."""
+        with tr.span("msann.flat.scan"):
+            if self.precision == "f32":
+                dd, ii = exact_knn_device(qs, self.base, k=kk,
+                                          metric=self.metric, tile=self.tile)
+                return ii[:, :k], dd[:, :k]
+            # the bounds the head's ids are clamped to before the rerank
+            # gathers their rows
+            lo, hi = 0, None
+            if self.precision == "scan":
+                from mysteryann_tpu_torch.ops.scan import BINS, flat_scan_topk
+                _, ii = flat_scan_topk(qs, self.scan_table, self.n_base,
+                                       min(k * self.oversample, BINS))
+                lo, hi = None, self.n_base - 1
+            elif self.precision == "bf16":
+                _, ii = exact_knn_device(qs.to(torch.bfloat16),
+                                         self.base_bf16, k=kk,
+                                         metric=self.metric, tile=self.tile)
+            elif self.int8_scale == "global":
+                q_i8, _ = quantize_rows_int8(qs)
+                _, ii = int8_global_knn_device(q_i8, self.base_i8, k=kk,
+                                               tile=self.tile)
+            else:
+                _, ii = int8_knn_device(qs, self.base_i8, self.base_scale,
+                                        k=kk, metric=self.metric,
+                                        tile=self.tile,
+                                        base_norm=self.base_norm)
+        with tr.span("msann.flat.rerank"):
+            dd, ii = _rerank_f32(self.base, qs,
+                                 torch.clamp(ii, min=lo, max=hi), k,
+                                 self.metric)
         return ii, dd
 
     def search(self, queries, k: int, query_batch: int = 8192,
@@ -165,29 +174,36 @@ class FlatIndex:
             # (src/index_bipartite.cpp:2408-2412); a silently narrower
             # [Q, N] result breaks [Q, k] consumers
             raise ValueError(f"k ({k}) > corpus size ({self.n_base})")
-        q = prepare_vectors(queries, self.metric, self.device)
-        nq, d = q.shape
-        if nq == 0:
-            e_i = torch.empty((0, k), dtype=torch.int32, device=self.device)
-            e_d = torch.empty((0, k), dtype=torch.float32,
-                              device=self.device)
-            return ((e_i, e_d) if device_out
-                    else (e_i.cpu().numpy(), e_d.cpu().numpy()))
-        qb = min(query_batch, nq)
-        if self.precision == "scan":
-            from mysteryann_tpu_torch.ops.scan import B_BLK
-            qb = -(-qb // B_BLK) * B_BLK
-        pad = (-nq) % qb
-        if pad:
-            q = torch.cat([q, q.new_zeros((pad, d))])
-        kk = min(k * self.oversample, self.n_base)
-        outs = [self._search_batch(q[s:s + qb], k, kk)
-                for s in range(0, nq + pad, qb)]
-        ids = torch.cat([o[0] for o in outs])[:nq].to(torch.int32)
-        dists = torch.cat([o[1] for o in outs])[:nq]
-        if device_out:
-            return ids, dists
-        return ids.cpu().numpy(), dists.cpu().numpy()
+        tr = tracer()
+        with tr.span("msann.flat.search"):
+            with tr.span("msann.flat.stage"):
+                q = prepare_vectors(queries, self.metric, self.device)
+                nq, d = q.shape
+                if nq == 0:
+                    e_i = torch.empty((0, k), dtype=torch.int32,
+                                      device=self.device)
+                    e_d = torch.empty((0, k), dtype=torch.float32,
+                                      device=self.device)
+                    return ((e_i, e_d) if device_out
+                            else (e_i.cpu().numpy(), e_d.cpu().numpy()))
+                qb = min(query_batch, nq)
+                if self.precision == "scan":
+                    from mysteryann_tpu_torch.ops.scan import B_BLK
+                    qb = -(-qb // B_BLK) * B_BLK
+                pad = (-nq) % qb
+                if pad:
+                    q = torch.cat([q, q.new_zeros((pad, d))])
+                kk = min(k * self.oversample, self.n_base)
+            tr.note(queries=nq, batches=(nq + pad) // qb,
+                    padded_rows=nq + pad)
+            outs = [self._search_batch(q[s:s + qb], k, kk, tr)
+                    for s in range(0, nq + pad, qb)]
+            with tr.span("msann.flat.assemble"):
+                ids = torch.cat([o[0] for o in outs])[:nq].to(torch.int32)
+                dists = torch.cat([o[1] for o in outs])[:nq]
+                if device_out:
+                    return ids, dists
+                return ids.cpu().numpy(), dists.cpu().numpy()
 
     def benchmark(self, queries, k: int, query_batch: int = 8192,
                   warmup: int = 1) -> dict:

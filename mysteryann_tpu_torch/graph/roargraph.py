@@ -82,7 +82,7 @@ from mysteryann_tpu_torch.search.fused import (_fused_beam, _pack_chunk,
                                                pack_neighbor_table)
 from mysteryann_tpu_torch.search.seeding import make_seed_sample, seed_scan
 from mysteryann_tpu_torch.utils.params import BuildConfig
-from mysteryann_tpu_torch.utils.timers import Timer
+from mysteryann_tpu_torch.utils.timers import Timer, device_sync
 from mysteryann_tpu_torch.utils.trace import tracer
 
 _I32 = torch.int32
@@ -676,7 +676,10 @@ def build_roargraph(
     log(f"setup (staging + fingerprint): "
         f"{_time.perf_counter() - t_build0:.1f}s")
 
-    with Timer("medoid") as t_med:
+    # each phase ends with the device's queued work done, so its time is
+    # the work it bounds
+    dev_sync = device_sync(dev)
+    with Timer("medoid", sync=dev_sync) as t_med:
         ep_st = ckpt.load("medoid")
         if ep_st is not None:
             ep = int(ep_st[0])
@@ -689,7 +692,7 @@ def build_roargraph(
     # Every training query's list is pruned against its top-1 target. The
     # first query's list is kept as the target's forward list; reverse
     # candidates come from every query's pruned list (:1088-1092).
-    with Timer("phaseA") as t_a:
+    with Timer("phaseA", sync=dev_sync) as t_a:
         st = ckpt.load("phaseA")
         if st is not None:
             pruned_all = st
@@ -709,7 +712,7 @@ def build_roargraph(
         f"({t_a.elapsed:.2f}s)")
 
     # ---- Phase B+C: reverse edges + degree repair ---------------------------
-    with Timer("phaseBC") as t_bc:
+    with Timer("phaseBC", sync=dev_sync) as t_bc:
         proj_np = ckpt.load("phaseBC")
         if proj_np is None:
             pv = pruned_all < n
@@ -746,7 +749,7 @@ def build_roargraph(
         f"zero {st['zero']} ({t_bc.elapsed:.2f}s)")
 
     # ---- Phase D: connectivity enhancement ----------------------------------
-    with Timer("phaseD") as t_d:
+    with Timer("phaseD", sync=dev_sync) as t_d:
         final = projection
         for p_i in range(max(1, cfg.connectivity_passes)):
             tag = f"phaseD{'' if p_i == 0 else p_i + 1}_{knobs}"
@@ -790,7 +793,6 @@ def build_roargraph(
     tr.record("build.phaseA", t_a.elapsed, queries=int(nq))
     tr.record("build.phaseBC", t_bc.elapsed)
     tr.record("build.phaseD", t_d.elapsed, nodes=int(n))
-    tr.count("build.nodes", n)
 
     return RoarGraphIndex(graph=g, metric=metric, dim=base.shape[1])
 

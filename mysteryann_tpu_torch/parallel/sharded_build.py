@@ -66,7 +66,7 @@ from mysteryann_tpu_torch.parallel.mesh import (Mesh, all_gather, gather_dp,
 from mysteryann_tpu_torch.parallel.sharded_knn import sharded_exact_knn
 from mysteryann_tpu_torch.parallel.sharded_search import _lockstep_sharded
 from mysteryann_tpu_torch.utils.params import BuildConfig
-from mysteryann_tpu_torch.utils.timers import Timer
+from mysteryann_tpu_torch.utils.timers import Timer, device_sync
 from mysteryann_tpu_torch.utils.trace import tracer
 
 _I32 = torch.int32
@@ -214,11 +214,12 @@ def sharded_build_roargraph(
     log = (functools.partial(print, file=sys.stderr, flush=True)
            if verbose and dist.get_rank() == 0 else (lambda *a, **k: None))
     dev = mesh.device
+    dev_sync = device_sync(dev)
     tr = tracer()
 
     # the medoid from the whole prepared base is the single-device
     # arithmetic; the rank then keeps its own rows only
-    with Timer("medoid") as t_med:
+    with Timer("medoid", sync=dev_sync) as t_med:
         full = prepare_vectors(base, metric, dev)
         ep = compute_medoid(full)
         shard_n = n // mp
@@ -229,7 +230,7 @@ def sharded_build_roargraph(
     knn = np.asarray(learn_base_knn[:, : cfg.M_sq], np.int64)
 
     # ---- phase A: projection prune, queries dealt over dp ------------------
-    with Timer("phaseA") as t_a:
+    with Timer("phaseA", sync=dev_sync) as t_a:
         tgt_all32 = knn[:, 0].astype(np.int32)
         cand = np.where(knn == tgt_all32[:, None], n, knn).astype(np.int32)
         pruned_all = prune(tgt_all32, cand, M, metric, cfg.query_batch,
@@ -241,7 +242,7 @@ def sharded_build_roargraph(
         f"({t_a.elapsed:.2f}s)")
 
     # ---- phase B+C: reverse edges + merge prune ----------------------------
-    with Timer("phaseBC") as t_bc:
+    with Timer("phaseBC", sync=dev_sync) as t_bc:
         pv = pruned_all < n
         e_src = np.repeat(knn[:, 0], M)[pv.ravel()]
         e_dst = pruned_all.ravel().astype(np.int64)[pv.ravel()]
@@ -259,7 +260,7 @@ def sharded_build_roargraph(
     log(f"sharded phase B/C ({t_bc.elapsed:.2f}s)")
 
     # ---- phase D: connectivity, supply mp-sharded; E: reachability --------
-    with Timer("phaseD") as t_d:
+    with Timer("phaseD", sync=dev_sync) as t_d:
         final = projection
         for p_i in range(max(1, cfg.connectivity_passes)):
             supply = _connectivity_pass_sharded(

@@ -112,3 +112,45 @@ def test_get_index_cls_flat():
     from mysteryann_tpu_torch.index import get_index_cls, index_kinds
     assert get_index_cls("flat") is TFlat
     assert "flat" in index_kinds() and "roargraph" in index_kinds()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8", "scan"])
+def test_flat_search_spans(world, precision, monkeypatch):
+    """Off, ``search`` records nothing; on, it gives the same answers and
+    records ``msann.flat.search`` (queries, batches, padded rows) over
+    ``stage``, each batch's ``scan`` and, below f32, ``rerank``, then
+    ``assemble``, under one call id, each also a range of a running
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mysteryann_tpu_torch.ops.scan import B_BLK
+    from mysteryann_tpu_torch.utils import trace
+
+    tr = trace.Tracer()
+    monkeypatch.setattr(trace, "_global", tr)
+    base, q = world
+    idx = TFlat(base, metric="ip", tile=1024, precision=precision,
+                device="cpu")
+    off = idx.search(q, k=10, query_batch=64)
+    assert list(tr.events) == []
+    with tr.tracing(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = idx.search(q, k=10, query_batch=64)
+    np.testing.assert_array_equal(on[0], off[0])
+    np.testing.assert_array_equal(on[1], off[1])
+
+    qb = B_BLK if precision == "scan" else 64     # 64 rounded up to B_BLK
+    batches = -(-q.shape[0] // qb)
+    per_batch = (["msann.flat.scan"] if precision == "f32"
+                 else ["msann.flat.scan", "msann.flat.rerank"])
+    ev = list(tr.events)
+    assert [e["name"] for e in ev] == (
+        ["msann.flat.stage"] + per_batch * batches
+        + ["msann.flat.assemble", "msann.flat.search"])
+    assert [e["parent"] for e in ev] == ["msann.flat.search"] * (
+        len(ev) - 1) + [None]
+    assert {e["call"] for e in ev} == {0}
+    root = ev[-1]
+    assert (root["queries"], root["batches"], root["padded_rows"]) == (
+        q.shape[0], batches, batches * qb)
+    ranges = {e.name for e in prof.events() if e.name.startswith("msann.")}
+    assert ranges == {e["name"] for e in ev}
