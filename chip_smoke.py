@@ -47,8 +47,10 @@ Phases, one line each before the last:
      card under score_select.check_tolerance, at the paths' shapes (the
      seed scan, 8,192 x 500,000 x 128, k 48; flat bf16, 8,192 x 1M x 128,
      k 20; a fused-build batch, 8,192 x 250,000 x 128, k 16; a batch of
-     256; one query), ip and l2, and bit for bit on dyadic operands
-     (tables of 1, 50 and 127 rows among them); times of the kernel, its
+     256; one query; the T2I flat cell's call at a tenth of its rows,
+     8,192 x 1M x 200, k 20), ip and l2, and bit for bit on dyadic
+     operands (d = 200 on short and long shares, tables of 1, 50 and 127
+     rows among them); times of the kernel, its
      plain version, the unfused route (the tiled f32 matmul + K3) and the
      fastest library composite (a bf16 torch.matmul, then torch.topk: no
      single PyTorch call computes the function), with the bound
@@ -285,7 +287,10 @@ K3F_SHAPES = (("seed_scan", 8192, 500_000, DIM, 48, 3, 3),
               ("flat_bf16", 8192, 1_000_000, DIM, 20, 3, 3),
               ("build_batch", 8192, 250_000, DIM, 16, 3, 3),
               ("small_batch", 256, 250_000, DIM, 16, 10, 5),
-              ("one_query", 1, 500_000, DIM, 48, 20, 7))
+              ("one_query", 1, 500_000, DIM, 48, 20, 7),
+              # the T2I flat cell's call at a tenth of its rows: the
+              # pre-filter, a 16-column last box, 24-key buffers
+              ("flat_t2i", 8192, 1_000_000, 200, 20, 3, 3))
 # K3f's launches by phase: flat bf16, the seeded fused build, fused serving;
 # and the calls of those phases that took score_topk's unfused route
 K3F_LAUNCHES: dict = {}
@@ -1060,11 +1065,16 @@ def kernel_score_select(score_select, dev) -> dict:
         del q, t
         torch.cuda.empty_cache()
     # dyadic operands: every sum exact, so the kernel's bits are the plain
-    # version's, ties included; the last four: tables under a step (128
-    # rows), batches under a tile, d under a box
+    # version's, ties included; d = 200 on a short share (the base loop)
+    # and on long ones (the pre-filter, a 16-column last box); the last
+    # four: tables under a step (128 rows), batches under a tile, d under a
+    # box
     dyadic = 0
     for B, n, d, k, metric in ((8192, 100_003, 128, 48, "ip"),
                                (1000, 30_011, 100, 20, "l2"),
+                               (1024, 100_003, 200, 20, "ip"),
+                               (8192, 600_011, 200, 20, "ip"),
+                               (8192, 600_011, 200, 48, "l2"),
                                (40, 5000, 32, 256, "cosine"),
                                (1, 20_000, 128, 48, "ip"),
                                (3, 1, 128, 1, "ip"), (40, 50, 32, 48, "l2"),

@@ -3,8 +3,10 @@
 // the tensor cores: the binned scan (scan.cu) and the score product fused
 // with the k-selection (score_select.cu).
 //
-// Operands are K-major in the 128-byte swizzled layout TMA writes: boxes of
-// [rows, 64 bf16] (128 B a row), 8-row groups 1024 B apart.
+// Operands are K-major in the swizzled layout TMA writes: boxes of [rows,
+// 64 bf16] (128 B a row, 128-byte swizzle), 8-row groups 1024 B apart; a
+// narrower box of 32 or 16 bf16 (64- or 32-byte swizzle) holds a row's last
+// few dimensions, 8-row groups 8 x its row apart.
 
 #pragma once
 
@@ -58,14 +60,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma matrix descriptor of a K-major operand in the 128-byte swizzled
-// layout TMA writes: 8-row groups 1024 B apart (SBO), the leading offset
-// unused, the base 1024-byte aligned. Adding 2 advances K by 16 bf16 (32 B).
-__device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
+// wgmma matrix descriptor of a K-major operand in the swizzled layout TMA
+// writes for a box `box_cols` bf16 wide (64: 128-byte swizzle, 32: 64-byte,
+// 16: 32-byte): 8-row groups 16 x box_cols bytes apart (SBO), the leading
+// offset unused, the base aligned to the swizzle's 8-row group. Adding 2
+// advances K by 16 bf16 (32 B).
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr,
+                                              int box_cols = kBoxCols) {
+  const uint64_t mode = box_cols == 64 ? 1 : box_cols == 32 ? 2 : 3;
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
+         (static_cast<uint64_t>(box_cols) << 32) | (mode << 62);
 }
 
 // acc (64 x 128 f32, this thread's 64 values) (+)= A (64 x 16) · B (16 x 128)
@@ -140,23 +145,26 @@ inline EncodeTiled encode_fn() {
 }
 
 // A bf16 [rows, d] row-major matrix, rows `ld` elements apart (default d;
-// a multiple of 8), as boxes of [box_rows, 64] elements, 128-byte swizzled
-// (the layout the wgmma descriptors above read). Rows past `rows` and
-// columns past `d` read as zeros, a box wider or taller than the matrix
-// included.
+// a multiple of 8), as boxes of [box_rows, box_cols] elements (64, 32 or
+// 16), swizzled by a box row's bytes (the layout the wgmma descriptors
+// above read). Rows past `rows` and columns past `d` read as zeros, a box
+// wider or taller than the matrix included.
 inline bool encode(CUtensorMap* map, const void* ptr, int64_t rows, int64_t d,
-            uint32_t box_rows, int64_t ld = 0) {
+            uint32_t box_rows, int64_t ld = 0, uint32_t box_cols = kBoxCols) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld > 0 ? ld : d) *
                                  2};
-  const cuuint32_t box[2] = {kBoxCols, box_rows};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
+  const CUtensorMapSwizzle swz = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -64,12 +64,15 @@ MIN_STAGES = 2
 SMEM_LIMIT = 232448      # per block, sm_90
 SMEM_SLACK = 1024 + 8 * (2 * MAX_STAGES + 1)
 SMALL_BATCH = 64         # B up to this: one consumer warpgroup (64 queries)
-BUF = 32                 # candidate buffer keys a query (csrc BUF)
+BUF = 32                 # candidate buffer keys a query (csrc kBuf) ...
+SMALL_BUF = 24           # ... or these, beside a queue of 32 and a narrow box
+PREFILTER_STEPS = 2048   # shares of this many steps or more: the pre-filter
+PREFILTER_QUEUE = 64     # ... at queues up to this
 STAGE_WARP = 32 * 4 + 64   # staged scores a consumer warp (csrc STAGE_WARP)
 # msann_score_select's one argument: q, t, q_sq, t_sq, values, ids, B, n,
 # d, q's and t's row pitches, k, l2, ld, consumers, split cols, splits,
-# queue, stages, stream
-_pack_args = struct.Struct("20q").pack
+# queue, stages, the last chunk's box columns, buffer keys, pre-filter, stream
+_pack_args = struct.Struct("23q").pack
 
 launches = 0        # kernel launches since import (or the last reset)
 unfused_launches = 0    # CUDA calls that took the unfused route
@@ -85,6 +88,10 @@ class Plan(NamedTuple):
     splits: int         # column shares a query tile
     split_cols: int     # columns a share, a multiple of NT
     smem: int           # dynamic shared memory bytes
+    tail_cols: int      # the last chunk's box: 64, 32 or 16 columns
+    kslices: int        # wgmma k-slices a warpgroup issues a step
+    buf: int            # candidate buffer keys a query: 24 or 32
+    prefilter: bool     # ip: a quiet step's maximum may end it (long shares)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -122,13 +129,55 @@ def aligned_rows(x: torch.Tensor) -> torch.Tensor:
     return out[:, :d]
 
 
-def smem_bytes(chunks: int, consumers: int, queue: int, stages: int) -> int:
-    """The query tile, the ring, the queues and buffers, the staged scores
-    and the buffers' counts (csrc smem_bytes)."""
+def tail_slices(d: int) -> int:
+    """The wgmma k-slices (16 dimensions each) of a row's last chunk."""
+    return _cdiv(d - KC * (_cdiv(d, KC) - 1), 16)
+
+
+def _step_bytes(chunks: int, tail_cols: int) -> int:
+    return (chunks - 1) * T_BYTES + NT * tail_cols * 2
+
+
+def _stage_off(s: int, chunks: int, tail_cols: int) -> int:
+    """Stage ``s``'s offset in the ring (csrc stage_off): whole steps, then
+    full stages."""
+    return s // chunks * _step_bytes(chunks, tail_cols) + s % chunks * T_BYTES
+
+
+def smem_bytes(chunks: int, consumers: int, queue: int, stages: int,
+               tail_cols: int = KC, buf: int = BUF) -> int:
+    """The query tile, the ring, the queues and buffers of ``buf`` keys a
+    query, the staged scores and the buffers' counts (csrc smem_bytes)."""
     qt = 64 * consumers
-    return (SMEM_SLACK + chunks * qt * KC * 2 + stages * T_BYTES
-            + qt * (queue + BUF) * 8 + 4 * consumers * STAGE_WARP * 8
-            + qt * 4)
+    return (SMEM_SLACK + qt * ((chunks - 1) * KC + tail_cols) * 2
+            + _stage_off(stages, chunks, tail_cols)
+            + qt * (queue + buf) * 8
+            + 4 * consumers * STAGE_WARP * 8 + qt * 4)
+
+
+def _ring(chunks: int, consumers: int, queue: int, tail: int,
+          prefilter: bool):
+    """(stages, tail box columns, buffer keys) of the deepest ring that
+    fits: full boxes and BUF-key buffers (the base loop's), or, under the
+    pre-filter, the last chunk in a box of 16 or 32 columns where its
+    k-slices fit one and the ring of whole steps is deeper for it, with
+    SMALL_BUF-key buffers beside a queue of 32. The kernel has an instance
+    for each."""
+    def fit(tail_cols, buf):
+        room = SMEM_LIMIT - smem_bytes(chunks, consumers, queue, 0,
+                                       tail_cols, buf)
+        if tail_cols == KC:
+            return min(MAX_STAGES, room // T_BYTES)
+        return min(MAX_STAGES // chunks,
+                   room // _step_bytes(chunks, tail_cols)) * chunks
+
+    ring = (fit(KC, BUF), KC, BUF)
+    if prefilter and tail <= 2:
+        buf = SMALL_BUF if queue == 32 else BUF
+        narrow = (fit(16 * tail, buf), 16 * tail, buf)
+        if narrow[0] > ring[0]:
+            return narrow
+    return ring
 
 
 def _plan(B: int, n: int, d: int, k: int, n_sms: int) -> Optional[Plan]:
@@ -139,26 +188,30 @@ def _plan(B: int, n: int, d: int, k: int, n_sms: int) -> Optional[Plan]:
     under a tile, a table under a step and d under a box as zeros. Pure.
 
     One query tile is 128 queries (two consumer warpgroups), or 64 when B
-    <= SMALL_BATCH or 128 do not fit; each query keeps a queue of the least
-    32 x 2^i >= k keys and a buffer of BUF; the ring takes what shared
-    memory is left, up to MAX_STAGES. The
-    columns are split into shares so the grid holds about one block an SM
-    (tiles x splits ≈ n_sms), each share a multiple of NT columns, the last
-    one at least k."""
+    <= SMALL_BATCH or when two stages of 128 do not fit with full boxes and
+    32-key buffers; each query keeps a queue of the least 32 x 2^i >= k keys
+    and a candidate buffer; the ring takes what shared memory is left, up
+    to MAX_STAGES. The columns are split into shares so the grid holds
+    about one block an SM (tiles x splits ≈ n_sms), each share a multiple
+    of NT columns, the last one at least k.
+
+    Where a block's share is PREFILTER_STEPS steps or more and the queue
+    at most PREFILTER_QUEUE, ip ends a step whose largest scores miss every
+    filter with one vote (``prefilter``), and the last chunk takes a narrow
+    box and its buffers SMALL_BUF keys where that deepens the ring
+    (``_ring``; a warpgroup then issues only the k-slices that hold
+    dimensions). On shorter shares the queues are still filling through
+    most steps: the pre-filter cost 4-6% at 1,000-2,000 steps, and the
+    deeper ring alone bought nothing. Both thresholds come from kernel
+    timings at a few shapes; only the T2I cell's side of them is measured
+    end to end."""
     if not 1 <= k <= min(MAX_K, n) or n + 2 * NT >= 1 << 31:
         return None
     chunks = _cdiv(d, KC)
+    tail = tail_slices(d)
     queue = _pow2(k, 32)
-    fit = None
-    for consumers in ((1,) if B <= SMALL_BATCH else (2, 1)):
-        stages = min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(
-            chunks, consumers, queue, 0)) // T_BYTES)
-        if stages >= MIN_STAGES:
-            fit = (consumers, stages)
-            break
-    if fit is None:
-        return None
-    consumers, stages = fit
+    consumers = 1 if B <= SMALL_BATCH or smem_bytes(
+        chunks, 2, queue, MIN_STAGES) > SMEM_LIMIT else 2
     tiles = _cdiv(B, 64 * consumers)
     splits = max(1, n_sms // tiles)
     while True:
@@ -167,8 +220,14 @@ def _plan(B: int, n: int, d: int, k: int, n_sms: int) -> Optional[Plan]:
         if used == 1 or n - (used - 1) * cols >= k:
             break
         splits -= 1
+    prefilter = queue <= PREFILTER_QUEUE and cols // NT >= PREFILTER_STEPS
+    stages, tail_cols, buf = _ring(chunks, consumers, queue, tail, prefilter)
+    if stages < MIN_STAGES:
+        return None
     return Plan(consumers, queue, stages, tiles, used, cols,
-                smem_bytes(chunks, consumers, queue, stages))
+                smem_bytes(chunks, consumers, queue, stages, tail_cols, buf),
+                tail_cols, 4 * chunks - (4 - tail if tail_cols < KC else 0),
+                buf, prefilter)
 
 
 def plan_for(q: torch.Tensor, t: torch.Tensor, k: int) -> Optional[Plan]:
@@ -269,6 +328,7 @@ def _score_topk_cuda(q, t, k, metric: Metric, q_sq, t_sq, plan: Plan):
         ts.data_ptr() if l2 else 0, vals.data_ptr(), ids.data_ptr(), B,
         n, d, qp.stride(0), tp.stride(0), k, int(l2), ld, plan.consumers,
         plan.split_cols, plan.splits, plan.queue, plan.stages,
+        plan.tail_cols, plan.buf, int(plan.prefilter),
         torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         rc = _fn(args)

@@ -9,6 +9,7 @@ CUDA source on one card, in turns.
     python scripts/torch_kernel_ab.py select --other OLD/mysteryann_tpu_torch/csrc/select.cu
     python scripts/torch_kernel_ab.py select --shapes seed,ivf       # name prefixes
     python scripts/torch_kernel_ab.py score_select [--shapes seed,flat]  # K3f
+    python scripts/torch_kernel_ab.py score_select --other OLD/mysteryann_tpu_torch/csrc/score_select.cu
 
 K1, the row gather: every version is timed through its own Python wrapper,
 so host-launched times include each design's host path. ``--other`` names
@@ -49,10 +50,12 @@ reported as refusing it and not timed there.
 
 K3f, the bf16 score product fused with the selection
 (``ops/score_select.score_topk``): at every shape of SCORE_SHAPES (the seed
-scan, flat bf16, a fused-build batch, one query) the kernel is held against
-its plain version (``score_topk_ref``) under ``check_tolerance``, then
-graph-timed (min of two runs, each the median of its trials) beside the
-plain version and the fastest two-call library composite, a bf16
+scan, flat bf16, a fused-build batch, one query, the T2I flat cell's shape
+at a tenth of its rows) each version (this checkout's and each
+``--other``'s, through the ``ops/score_select.py`` beside it) is held
+against its plain version (``score_topk_ref``) under ``check_tolerance``,
+then graph-timed (min of two runs, each the median of its trials) in the
+order others, this, this, others reversed, beside the plain version and the fastest two-call library composite, a bf16
 ``torch.matmul`` then ``torch.topk`` (no single PyTorch call computes the
 function), and the unfused route (the f32 tiled matmul of the bf16 values
 selected by K3: what the seed scan and flat bf16 ran before K3f, and what
@@ -147,7 +150,9 @@ SELECT_SHAPES = (
 # 8,192-query batch over the 1M world's 1-in-2 sample, flat bf16 over the 1M
 # base (k = 10 x oversample 2), a fused-build phase-D batch of 8,192 nodes
 # seeding 16 from a 1-in-4 sample, a small batch of 256 (a CLI's, the
-# build's last), one query, and the seed scan at GloVe's d = 100
+# build's last), one query, the seed scan at GloVe's d = 100, and the
+# t2i10m-flat cell's call (8,192 queries, T2I's d = 200, k 20) over a tenth
+# of its 10M rows
 SCORE_SHAPES = (
     ("seed_scan", 8192, 500_000, 128, 48, 3),
     ("flat_bf16", 8192, 1_000_000, 128, 20, 3),
@@ -155,6 +160,7 @@ SCORE_SHAPES = (
     ("small_batch", 256, 250_000, 128, 16, 10),
     ("one_query", 1, 500_000, 128, 48, 20),
     ("seed_scan_d100", 8192, 500_000, 100, 48, 3),
+    ("flat_t2i", 8192, 1_000_000, 200, 20, 3),
 )
 
 
@@ -169,18 +175,22 @@ def _call(fn, *args) -> None:
 
 
 def _ptxas(log: str) -> list:
+    """ptxas's lines of each kernel: its name, registers, spills and any
+    wgmma serialization warning."""
     return [ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln
+            or "wgmma" in ln]
 
 
-def load_gather(source: str, tag: str):
-    """The wrapper module of another tree's ``csrc/gather.cu``: its
-    ``ops/gather.py``, bound to that source."""
+def load_wrapper(source: str, tag: str):
+    """The wrapper module of another tree's ``csrc/<kernel>.cu``: the
+    ``ops/<kernel>.py`` beside it in that tree, bound to that source."""
+    stem = os.path.splitext(os.path.basename(source))[0]
     wrapper = os.path.join(os.path.dirname(os.path.dirname(source)), "ops",
-                           "gather.py")
+                           stem + ".py")
     if not os.path.exists(wrapper):
-        sys.exit(f"no ops/gather.py beside {source}")
-    spec = importlib.util.spec_from_file_location(f"_k1_{tag}", wrapper)
+        sys.exit(f"no ops/{stem}.py beside {source}")
+    spec = importlib.util.spec_from_file_location(f"_{stem}_{tag}", wrapper)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.SOURCE = source
@@ -213,7 +223,7 @@ def run_gather(args, dev) -> None:
     versions = {"this": gather}
     others = [f"other{i}" for i in range(len(args.other))]
     for name, path in zip(others, args.other):
-        versions[name] = load_gather(os.path.abspath(path), name)
+        versions[name] = load_wrapper(os.path.abspath(path), name)
     for name, mod in versions.items():
         mod.build(force=True)
         print(json.dumps({"build": name, "source": mod.SOURCE,
@@ -264,20 +274,6 @@ def run_gather(args, dev) -> None:
         torch.cuda.empty_cache()
 
 
-def load_select(source: str, tag: str):
-    """The wrapper module of another tree's ``csrc/select.cu``: its
-    ``ops/select.py``, bound to that source."""
-    wrapper = os.path.join(os.path.dirname(os.path.dirname(source)), "ops",
-                           "select.py")
-    if not os.path.exists(wrapper):
-        sys.exit(f"no ops/select.py beside {source}")
-    spec = importlib.util.spec_from_file_location(f"_k3_{tag}", wrapper)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.SOURCE = source
-    return mod
-
-
 def _readings(fn, reps: int, enqueue: bool) -> dict:
     trials = 7 if reps >= 10 else 3
     out = {"graph_ms": time_ms_graph(fn, reps, trials),
@@ -291,7 +287,7 @@ def run_select(args, dev) -> None:
     versions = {"this": select}
     others = [f"other{i}" for i in range(len(args.other))]
     for name, path in zip(others, args.other):
-        versions[name] = load_select(os.path.abspath(path), name)
+        versions[name] = load_wrapper(os.path.abspath(path), name)
     for name, mod in versions.items():
         mod.build(force=True)
         print(json.dumps({"build": name, "source": mod.SOURCE,
@@ -345,9 +341,15 @@ def run_select(args, dev) -> None:
 
 
 def run_score_select(args, dev) -> None:
-    score_select.build(force=True)
-    print(json.dumps({"build": "this", "source": score_select.SOURCE,
-                      "ptxas": _ptxas(score_select.build_log)}), flush=True)
+    versions = {"this": score_select}
+    others = [f"other{i}" for i in range(len(args.other))]
+    for name, path in zip(others, args.other):
+        versions[name] = load_wrapper(os.path.abspath(path), name)
+    for name, mod in versions.items():
+        mod.build(force=True)
+        print(json.dumps({"build": name, "source": mod.SOURCE,
+                          "ptxas": _ptxas(mod.build_log)}), flush=True)
+    order = others + ["this", "this"] + others[::-1]
     wanted = args.shapes.split(",") if args.shapes else None
     g = torch.Generator(device=dev)
     g.manual_seed(5)
@@ -360,16 +362,22 @@ def run_score_select(args, dev) -> None:
         t = score_select.aligned_rows(t_flat)
         if t.data_ptr() == t_flat.data_ptr():
             t_flat = None
-        got = score_select.score_topk(q, t, k, "ip")
         want = score_select.score_topk_ref(q, t, k, "ip")
-        tol = score_select.check_tolerance(q, t, "ip", got, want)
-        if not tol["ok"]:
-            sys.exit(f"K3f outside its tolerance at {name}: {tol}")
-        del got, want
+        tol = {}
+        for ver, mod in versions.items():
+            got = mod.score_topk(q, t, k, "ip")
+            tol[ver] = score_select.check_tolerance(q, t, "ip", got, want)
+            if not tol[ver]["ok"]:
+                sys.exit(f"{ver}: K3f outside its tolerance at {name}: "
+                         f"{tol[ver]}")
+            del got
+        del want
         trials = 7 if reps >= 10 else 3
-        kernel = [time_ms_graph(
-            lambda: score_select.score_topk(q, t, k, "ip"), reps, trials)
-            for _ in range(2)]
+        times = {v: [] for v in versions}
+        for ver in order:
+            times[ver].append(min(time_ms_graph(
+                lambda m=versions[ver]: m.score_topk(q, t, k, "ip"), reps,
+                trials) for _ in range(2)))
         plain = time_ms(lambda: score_select.score_topk_ref(q, t, k, "ip"),
                         1, 3)
         library = [time_ms_graph(lambda: k3f_library(q, t, k), reps,
@@ -383,14 +391,17 @@ def run_score_select(args, dev) -> None:
                 lambda: score_select.score_topk(q, t_flat, k, "ip"), reps,
                 trials) for _ in range(2))
         bound, by = k3f_bound(B, n, d, k)
+        ms = {v: min(r) for v, r in times.items()}
         print(json.dumps({
             "kernel": "score_select", "shape": name, "B": B, "n": n, "d": d,
-            "k": k, "plan": score_select.plan_for(q, t, k)._asdict(),
-            "tolerance": tol, "graph_ms": kernel, "ms": min(kernel),
+            "k": k, "plan": {v: m.plan_for(q, t, k)._asdict()
+                             for v, m in versions.items()},
+            "tolerance": tol, "graph_ms": times, "ms": ms,
             "plain_ms": plain, "library_graph_ms": library,
             "library_ms": min(library), "unfused_ms": unfused,
             "copy_ms": copy, "bound_ms": bound, "bound_by": by,
-            "share": bound / min(kernel)}), flush=True)
+            "share": {v: bound / m for v, m in ms.items()},
+            "sources": dict(zip(others, args.other))}), flush=True)
         del q, t, t_flat
         torch.cuda.empty_cache()
 

@@ -223,6 +223,9 @@ def test_seed_scan_calls_score_topk(monkeypatch):
     # (consumers, queue, stages, tiles, splits, split_cols)
     (8192, 500_000, 128, 48, (2, 64, 5, 64, 2, 250_112)),    # the seed scan
     (8192, 1_000_000, 128, 20, (2, 32, 7, 64, 2, 500_096)),  # flat bf16
+    # the T2I-10M flat cell: 8 stages, two whole steps of a 16-column tail
+    # and 24-key buffers
+    (8192, 10_000_000, 200, 20, (2, 32, 8, 64, 2, 5_000_064)),
     (1, 500_000, 128, 48, (1, 64, 8, 1, 131, 3840)),         # B = 1
     (64, 500_000, 128, 48, (1, 64, 8, 1, 131, 3840)),
     (65, 500_000, 128, 48, (2, 64, 5, 1, 131, 3840)),
@@ -243,13 +246,129 @@ def test_seed_scan_calls_score_topk(monkeypatch):
 def test_plan(B, n, d, k, want):
     p = ss._plan(B, n, d, k, H100_SMS)
     assert p[:6] == want
-    assert p.smem == ss.smem_bytes(-(-d // ss.KC), p.consumers, p.queue,
-                                   p.stages)
+    chunks = -(-d // ss.KC)
+    assert p.smem == ss.smem_bytes(chunks, p.consumers, p.queue, p.stages,
+                                   p.tail_cols, p.buf)
     assert p.smem <= ss.SMEM_LIMIT and p.queue >= k
+    # a narrow last box holds the last dimensions; the ring whole steps
+    assert d - ss.KC * (chunks - 1) <= p.tail_cols
+    assert p.tail_cols == ss.KC or p.stages % chunks == 0
+    assert p.prefilter == (p.queue <= ss.PREFILTER_QUEUE and
+                           p.split_cols // ss.NT >= ss.PREFILTER_STEPS)
+    # a narrower box or buffer only under the pre-filter, and only where the
+    # full ones leave a shallower ring
+    full = min(ss.MAX_STAGES, (ss.SMEM_LIMIT - ss.smem_bytes(
+        chunks, p.consumers, p.queue, 0)) // ss.T_BYTES)
+    assert p.stages >= full
+    assert (p.tail_cols, p.buf) == (ss.KC, ss.BUF) or (
+        p.prefilter and p.stages > full)
     assert p.split_cols % ss.NT == 0
     assert (p.splits - 1) * p.split_cols < n <= p.splits * p.split_cols
     assert n - (p.splits - 1) * p.split_cols >= k
     assert p.tiles * 64 * p.consumers >= B
+
+
+@pytest.mark.parametrize("B,n,d,k,consumers", [
+    (8192, 10_000_000, 200, 20, 2),      # two consumer warpgroups
+    (8192, 500_000, 128, 48, 2),
+    (65, 500_000, 128, 48, 2),
+    (64, 500_000, 128, 48, 1),           # B <= 64: one warpgroup
+    (1, 500_000, 200, 20, 1),
+    (8192, 500_000, 128, 129, 1),        # a queue of 256
+    (8192, 500_000, 512, 48, 1),         # rows too wide for two
+    (8192, 500_000, 512, 20, 1),         # as with 32-key buffers
+    (8192, 500_000, 96, 100, 1),         # as with a full last box
+    (8192, 500_000, 256, 48, 2),
+])
+def test_plan_warpgroups(B, n, d, k, consumers):
+    """Two consumer warpgroups where two stages of 128 queries fit with
+    full boxes and 32-key buffers, as without the pre-filter; the narrower
+    last box and 24-key buffers of long shares only deepen the ring (at d =
+    512, k 20, two warpgroups would fit two stages with 24-key buffers,
+    against one warpgroup's 7: the plan keeps one). No option chooses."""
+    p = ss._plan(B, n, d, k, H100_SMS)
+    assert p.consumers == consumers
+
+
+@pytest.mark.parametrize("d,kslices,tail_cols", [
+    (200, 13, 16), (128, 8, 64), (100, 8, 64), (129, 12, 64), (16, 4, 64),
+    (32, 4, 64), (160, 12, 64), (64, 4, 64), (1, 4, 64), (96, 6, 32),
+])
+def test_plan_kslices(d, kslices, tail_cols):
+    """On a long share (the pre-filter's) the last chunk's box is 16 or 32
+    columns wide where its k-slices fit one and the ring of whole steps is
+    deeper for it, and a warpgroup then issues only the ceil(tail / 16)
+    k-slices of it that hold dimensions; a full last box is issued whole (at
+    d = 129 and 160 whole steps hold 6 stages, a full box as many; at d <=
+    64 a full box already holds 8). A short share issues every box whole."""
+    p = ss._plan(8192, 1_000_000, d, 20, H100_SMS)
+    assert p.prefilter
+    chunks = -(-d // ss.KC)
+    assert p.kslices == kslices
+    assert p.tail_cols == tail_cols
+    if tail_cols < ss.KC:
+        assert kslices == 4 * (chunks - 1) + ss.tail_slices(d)
+    else:
+        assert kslices == 4 * chunks
+    short = ss._plan(8192, 100_000, d, 20, H100_SMS)
+    assert not short.prefilter and short.tail_cols == ss.KC
+    assert short.kslices == 4 * chunks
+
+
+def test_plan_t2i_ring_holds_two_steps():
+    """At the flat cell's shape the ring holds two whole steps, from the
+    16-column tail and 24-key buffers; 32-key buffers leave one whole step
+    of narrow boxes or 5 full stages (1.25 steps), the base ring."""
+    p = ss._plan(8192, 10_000_000, 200, 20, H100_SMS)
+    assert (p.stages, p.tail_cols, p.buf) == (2 * 4, 16, ss.SMALL_BUF)
+    assert ss.smem_bytes(4, 2, 32, 8, 16, 24) == p.smem <= ss.SMEM_LIMIT
+    assert ss.smem_bytes(4, 2, 32, 8, 16, 32) > ss.SMEM_LIMIT
+    assert ss.smem_bytes(4, 2, 32, 5) <= ss.SMEM_LIMIT
+    assert ss.smem_bytes(4, 2, 32, 6) > ss.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("B,n,d,k,prefilter", [
+    (8192, 10_000_000, 200, 20, True),   # 39,063 steps a share
+    (8192, 1_000_000, 128, 20, True),    # 3,907
+    (8192, 500_000, 128, 48, False),     # 1,954: the seed scan
+    (8192, 250_000, 128, 16, False),     # 977: a build batch
+    (1, 500_000, 128, 48, False),        # 30
+    (8192, 10_000_000, 200, 64, True),   # a queue of 64
+    (8192, 10_000_000, 200, 100, False),  # a queue of 128: the base loop
+])
+def test_plan_prefilter(B, n, d, k, prefilter):
+    """The per-step maximum ends quiet ip steps where a block's share is
+    long enough for its queues to settle, at queues up to 64."""
+    assert ss._plan(B, n, d, k, H100_SMS).prefilter == prefilter
+
+
+def test_plan_takes_the_kernels_instances():
+    """Every plan over a grid of shapes maps to one of the kernel's ten
+    instances, each of them is reached, and a plan without the pre-filter
+    is the base loop's (full boxes, 32-key buffers)."""
+    src = open(ss.SOURCE).read()
+    body = src[src.index("int launch_plan("):]
+    body = body[:body.index("\n}\n")]
+    made = set(re.findall(r"launch<(\d), (\d), (BUF|SMALL_BUF), (true|false)>",
+                          body))
+    assert len(made) == 10
+    reached = set()
+    for B in (1, 64, 65, 1024, 8192, 20_000):
+        for n in (1000, 250_000, 600_011, 10_000_000):
+            for d in (16, 32, 96, 100, 128, 200, 512):
+                for k in (10, 20, 48, 64, 100, 200):
+                    p = ss._plan(B, n, d, k, H100_SMS)
+                    if p is None:
+                        continue
+                    if not p.prefilter:
+                        assert (p.tail_cols, p.buf) == (ss.KC, ss.BUF)
+                    tailk = 4 if p.tail_cols == ss.KC else p.tail_cols // 16
+                    buf = "SMALL_BUF" if p.buf == ss.SMALL_BUF else "BUF"
+                    inst = (str(p.queue // 32), str(tailk), buf,
+                            "true" if p.prefilter else "false")
+                    assert inst in made, (B, n, d, k, p)
+                    reached.add(inst)
+    assert reached == made
 
 
 def test_plan_split_fills_the_card():
@@ -375,15 +494,22 @@ def test_source_agrees_with_the_wrapper():
     src = open(ss.SOURCE).read()
     fields = re.search(r"enum Arg \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"^\s*(k\w+)", fields, re.M)
-    assert names[-1] == "kArgs" and len(names) - 1 == 20
-    assert len(ss._pack_args(*range(20))) == 20 * 8
+    assert names[-1] == "kArgs" and len(names) - 1 == 23
+    assert len(ss._pack_args(*range(23))) == 23 * 8
     assert names[8:11] == ["kD", "kLdQ", "kLdT"]
+    assert names[18:23] == ["kStages", "kTailCols", "kBuf", "kPrefilter",
+                            "kStream"]
     assert f"NT = {ss.NT};" in src and "KC = kBoxCols;" in src
     assert f"MAX_STAGES = {ss.MAX_STAGES};" in src
     assert f"SMEM_LIMIT = {ss.SMEM_LIMIT};" in src
     assert "SMEM_SLACK = 1024 + 8 * (2 * MAX_STAGES + 1);" in src
     assert ss.SMEM_SLACK == 1024 + 8 * (2 * ss.MAX_STAGES + 1)
-    assert f"BUF = {ss.BUF};" in src
+    assert f"BUF = {ss.BUF};" in src and f"SMALL_BUF = {ss.SMALL_BUF};" in src
+    # the box, the buffer and the pre-filter are an instance's: no branch
+    # around a wgmma, and no pre-filter block in the base loop
+    assert "template <int KPL, int TAILK, int BUF, bool PRE>" in src
+    assert all(f"launch<{q}, 4, BUF, false>" in src for q in (1, 2, 4, 8))
+    assert all(f"launch<1, {t}, SMALL_BUF, true>" in src for t in (1, 2))
     assert "STAGE_WARP = 32 * STAGE + 64;" in src and "STAGE = 4;" in src
     assert ss.STAGE_WARP == 32 * 4 + 64
     assert '#include "k3_queue.cuh"' in src
@@ -515,6 +641,17 @@ CARD_SHAPES = [(1024, 100_003, 128, 48, "ip"), (257, 20_011, 100, 10, "l2"),
                (1, 50_000, 128, 48, "ip"), (40, 5000, 32, 256, "cosine"),
                (300, 3001, 128, 129, "l2"), (8192, 30_000, 128, 20, "ip"),
                (70, 777, 200, 64, "ip"),
+               # d = 200 past one tile (a 16-column tail, 24- and 32-key
+               # buffers), one warpgroup with that tail, and two with a
+               # 32-column tail (d = 32)
+               (1024, 100_003, 200, 20, "ip"), (300, 20_011, 200, 48, "l2"),
+               (40, 5000, 200, 200, "cosine"), (300, 9000, 32, 48, "ip"),
+               # long shares (the pre-filter): a 16- and a 32-column tail
+               # at queues of 32 (24-key buffers) and 64, and full boxes
+               (8192, 600_011, 200, 20, "ip"), (8192, 600_011, 200, 48, "l2"),
+               (8192, 600_011, 96, 20, "ip"), (8192, 600_011, 96, 48, "l2"),
+               (8192, 600_011, 128, 20, "cosine"),
+               (8192, 600_011, 128, 48, "ip"),
                # a table under a step, a batch under a tile, d under a box
                (3, 1, 128, 1, "ip"), (40, 50, 32, 48, "l2"),
                (1, 127, 100, 100, "cosine"), (130, 127, 16, 127, "ip")]
@@ -547,11 +684,14 @@ def test_kernel_bits_on_dyadic_data(cuda_device, B, n, d, k, metric):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(128, 200_000), (200, 600_011)])
 def test_kernel_deterministic_across_batch_and_split(cuda_device,
-                                                     monkeypatch):
-    """A query's result has the same bits alone, in a batch of 8,192, on a
-    card of another SM count (another split) and on a second run."""
-    q, t, _, _ = _card_case(cuda_device, 8192, 200_000, 128, "ip", False, 5)
+                                                     monkeypatch, d, n):
+    """A query's result has the same bits alone (one warpgroup), in a batch
+    of 8,192 (two), on a card of another SM count (another split) and on a
+    second run; at d = 200 the batch's long shares take the pre-filter and
+    a 16-column last box, and the query alone the base loop."""
+    q, t, _, _ = _card_case(cuda_device, 8192, n, d, "ip", False, 5)
     full = ss.score_topk(q, t, 48, "ip")
     again = ss.score_topk(q, t, 48, "ip")
     assert torch.equal(full[0], again[0]) and torch.equal(full[1], again[1])
